@@ -1,0 +1,255 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (src/yabpe_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device, nvcc (CUDA_HOME or /usr/local/cuda) and g++; it
+exits non-zero, printing no result, without a CUDA device or outside a
+checkout of the repository. It imports nothing of JAX or of the JAX
+package. Phases, none of whose failures is caught:
+
+1. card: the device's name and power limit;
+2. build: nvcc builds csrc/hbm_loop.cu for sm_90a and g++ the native
+   scanner, side by side; prints the build time and the ptxas register
+   and shared-memory lines;
+3. kernel against twin: one 2048-step chunk of the merge-loop kernel and
+   of its plain twin from one state, on the 5 MB realistic fixture at
+   vocab 4096; merges, words, counts and the vocab tensors must be
+   exactly equal and row_max at least each row's max;
+4. full width: a 100 MB corpus from scripts/gen_corpus.py (lexicon
+   200,000, seed 7) at vocab 32,000, the configuration of bench.py's
+   bench_train_100m_hbm:
+   a. kernel against twin again, for the first chunk at these shapes,
+      timed by CUDA events, with the bytes the chunk needs at least;
+   b. the main path: BBPETrainer(...).train(files) on the card, with the
+      kernel's launch count zeroed before and read after;
+   c. the same corpus through the native C++ host loop: the merges must
+      be byte-identical;
+   d. save() both models and load_model() them back: the files must be
+      byte-identical and the vocab must round-trip.
+
+Every number printed is from this run on this card; the last two lines
+are the kernels' JSON record and {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SPECIALS = ["<|endoftext|>"]
+CHUNK = 2048
+#: H100 SXM device-memory rate (NVIDIA data sheet), for the bound.
+HBM_BYTES_PER_S = 3.35e12
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed_chunk(fn, state, **kw) -> float:
+    """Milliseconds of one chunk by CUDA events around it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(state, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def kernel_vs_twin(label, table, base, vocab_cap, min_frequency, card):
+    """One chunk through the kernel and through the twin from one state;
+    returns (kernel ms, twin ms, bytes needed, max abs difference)."""
+    import torch
+
+    from yabpe_tpu_torch.kernels import hbm_loop
+    from yabpe_tpu_torch.train.hbm_driver import state_from_numpy
+
+    num = vocab_cap - len(base)
+    twin = state_from_numpy(table.words, table.freqs, base, vocab_cap, "cuda", num_merges=num)
+    kern = twin.clone()
+    kw = dict(chunk_start=0, chunk_size=CHUNK, num_merges=num, min_frequency=min_frequency)
+    tally: dict[str, int] = {}
+    plain_ms = timed_chunk(hbm_loop.hbm_merge_chunk_reference, twin, tally=tally, **kw)
+    ms = timed_chunk(hbm_loop.hbm_merge_chunk, kern, **kw)
+    err = 0
+    for name in ("merges", "words", "counts", "token_bytes", "token_len", "lex_rank"):
+        a, b = getattr(kern, name), getattr(twin, name)
+        diff = int((a.long() - b.long()).abs().max())
+        err = max(err, diff)
+        check(diff == 0, f"{label}: kernel and twin differ in {name} (max {diff})")
+    check(torch.equal(kern.scalars[:3], twin.scalars[:3]), f"{label}: scalars differ")
+    check(bool((kern.row_max >= kern.counts.amax(dim=1)).all()), f"{label}: row_max below a row max")
+    steps = int(kern.scalars[2])
+    print(f"{label}: V={vocab_cap} N={table.words.shape[0]} W={table.words.shape[1]} "
+          f"steps={steps} affected_words={tally.get('affected_words', 0)} "
+          f"kernel_chunk_ms={ms} twin_chunk_ms={plain_ms} needed_bytes={tally['bytes']} "
+          f"max_abs_err={err} (tolerance: exact) [{card}]")
+    del twin, kern
+    torch.cuda.empty_cache()
+    return ms, plain_ms, tally["bytes"], err
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (REPO / "src" / "yabpe_tpu_torch").is_dir():
+        print(f"chip_smoke: {REPO} is not a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO / "src"))
+    sys.path.insert(0, str(REPO / "scripts"))
+
+    from gen_corpus import generate
+
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig, native
+    from yabpe_tpu_torch.core.vocab import Vocab
+    from yabpe_tpu_torch.core.wordtable import WordTable
+    from yabpe_tpu_torch.io.native import load_model
+    from yabpe_tpu_torch.kernels import _build, hbm_loop
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens
+
+    t_all = time.perf_counter()
+    # ---- 1. card
+    card = card_line()
+    print(card)
+    print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # ---- 2. build, kernel and native scanner side by side
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        kernel_build = pool.submit(_build.build, "hbm_loop")
+        native_build = pool.submit(native.load)
+        so_path, ptxas = kernel_build.result()
+        native_build.result()
+    print(f"build: {time.perf_counter() - t0:.3f} s for {so_path.name} and the native scanner")
+    for line in ptxas.splitlines():
+        if "ptxas info" in line and ("registers" in line or "Compiling" in line or "smem" in line):
+            print(f"  {line.strip()}")
+
+    base = list(Vocab.base(SPECIALS).tokens())
+    ingest = dict(chunk_size_bytes=32 << 20, max_workers=8, align_to_newline=True)
+
+    # ---- 3. kernel against twin, 5 MB realistic fixture at vocab 4096
+    fixture = REPO / "tests" / "fixtures_gpt2" / "bench_5M_realistic.txt"
+    small = WordTable.from_counter(count_pretokens([fixture], SPECIALS, **ingest))
+    kernel_vs_twin("kernel_vs_twin_5M_v4096", small, base, 4096, 2, card)
+
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_") as tmp:
+        tmp = Path(tmp)
+        corpus = tmp / "corpus_100M.txt"
+        t0 = time.perf_counter()
+        generate(str(corpus), 100.0, lexicon_size=200_000)
+        print(f"corpus: {corpus.stat().st_size} bytes in {time.perf_counter() - t0:.3f} s (host)")
+
+        # ---- 4a. kernel against twin at the main path's shapes
+        t0 = time.perf_counter()
+        full = WordTable.from_counter(count_pretokens([corpus], SPECIALS, **ingest))
+        print(f"word table: {full.num_words} words, width {full.width}, "
+              f"{time.perf_counter() - t0:.3f} s (host)")
+        ms, plain_ms, need, err = kernel_vs_twin(
+            "kernel_vs_twin_100M_v32000", full, base, 32000, 2, card
+        )
+        del full
+
+        # ---- 4b. the main path through the kernel
+        cfg = dict(
+            vocab_size=32000, min_frequency=2, max_workers=8,
+            chunk_size_bytes=32 << 20, special_tokens=SPECIALS,
+            align_chunks_to_newline=True,
+        )
+        trainer = BBPETrainer(BBPETrainerConfig(**cfg, use_native_loop=False, device="cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        hbm_loop.LAUNCHES["hbm_merge_chunk"] = 0
+        model = trainer.train([corpus])
+        launches = hbm_loop.LAUNCHES["hbm_merge_chunk"]
+        peak = torch.cuda.max_memory_allocated()
+        stats = trainer.last_stats
+        n = len(model.merges)
+        print(f"main path (device): ingest_s={stats['ingest_seconds']} "
+              f"merge_s={stats['merge_seconds']} merges={n} "
+              f"merges_per_s={n / stats['merge_seconds']} "
+              f"unique_pretokens={int(stats['unique_pretokens'])} [{card}]")
+        print(f"main path (device): max_memory_allocated={peak} B "
+              f"count_table={4 * 32000 * 32000} B kernel_launches={launches} [{card}]")
+        check(launches > 0, "the main path never launched hbm_merge_chunk")
+        check(n == 32000 - len(base), f"{n} merges, expected {32000 - len(base)}")
+
+        # ---- 4c. byte-identical to the native host loop
+        native_trainer = BBPETrainer(BBPETrainerConfig(**cfg, use_native_loop=True))
+        native_model = native_trainer.train([corpus])
+        print(f"native host loop: merge_s={native_trainer.last_stats['merge_seconds']} "
+              f"merges={len(native_model.merges)} (host)")
+        check(model.merges == native_model.merges, "device merges differ from the native loop")
+        check(model.vocab == native_model.vocab, "device vocab differs from the native loop")
+
+        # ---- 4d. save and load
+        trainer.save(tmp / "device_model")
+        native_trainer.save(tmp / "native_model")
+        for name in ("vocab.json", "merges.txt", "special_tokens.json"):
+            check((tmp / "device_model" / name).read_bytes()
+                  == (tmp / "native_model" / name).read_bytes(), f"{name} differs")
+        vocab, merges, specials = load_model(tmp / "device_model")
+        check(vocab == model.vocab and specials == SPECIALS, "saved model does not load back")
+        check(merges == load_model(tmp / "native_model")[1], "loaded merges differ")
+
+    bound_ms = need / HBM_BYTES_PER_S * 1e3
+    print(f"hbm_merge_chunk first chunk at V=32000: kernel {ms} ms, twin {plain_ms} ms, "
+          f"bound {bound_ms} ms by bytes [{card}]")
+    print(f"total: {time.perf_counter() - t_all:.3f} s")
+    record = {
+        "kernels": [
+            {
+                "name": "hbm_merge_chunk",
+                "route": "cuda",
+                "source": "src/yabpe_tpu_torch/csrc/hbm_loop.cu",
+                "replaces": "src/yabpe_tpu/kernels/hbm_loop.py:227",
+                "launches": launches,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+        ]
+    }
+    print(json.dumps(record))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

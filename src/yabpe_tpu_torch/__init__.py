@@ -1,0 +1,22 @@
+"""yabpe-tpu's PyTorch/CUDA port: byte-level BPE training on an NVIDIA GPU.
+
+The same public surface as the JAX package ``yabpe_tpu``, for the parts
+ported so far:
+
+- :class:`BBPETrainer`       — train a byte-level BPE vocabulary from files.
+- :class:`BBPETrainerConfig` — trainer configuration, plus ``device``.
+- :class:`BBPEModel`         — container for a trained model.
+
+The merge loop runs as hand-written CUDA kernels (``csrc/hbm_loop.cu``)
+over state in device memory; ingestion is the native C++ scanner in
+``native/``. This package imports torch and numpy, never JAX and never
+the JAX package.
+"""
+
+from yabpe_tpu_torch.train.config import BBPETrainerConfig
+from yabpe_tpu_torch.train.model import BBPEModel
+from yabpe_tpu_torch.train.trainer import BBPETrainer
+
+__version__ = "0.1.0"
+
+__all__ = ["BBPETrainer", "BBPETrainerConfig", "BBPEModel", "__version__"]

@@ -1,0 +1,125 @@
+"""Lexicographic ordering of variable-length byte strings, on tensors.
+
+Counterpart of yabpe_tpu/core/lexkey.py. The reference breaks pair-count
+ties by the lexicographically *greatest* pair of token byte strings,
+compared as a tuple: left token first, then right. The trainer keeps, for
+every live token id, its dense **lexicographic rank** among all live
+tokens, so the tie-break becomes an integer argmax over
+``(count, lex_rank[left], lex_rank[right])``.
+
+Token byte strings are an int32 matrix padded with -1; since -1 < any byte
+value, padded fixed-width comparison reproduces the shorter-string-is-prefix
+rule ("ab" < "abc") for free.
+
+The numpy helpers build the initial state on the host; the torch functions
+are the plain versions that the merge kernel's twin uses on any device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BYTE_PAD: int = -1
+
+
+def initial_token_matrix(
+    token_bytes_list: list[bytes], vocab_cap: int, byte_width: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pack token byte strings into the device matrix layout.
+
+    Returns (token_bytes [vocab_cap, byte_width] int32 padded with -1,
+    token_len [vocab_cap] int32).
+    """
+    mat = np.full((vocab_cap, byte_width), BYTE_PAD, dtype=np.int32)
+    lens = np.zeros((vocab_cap,), dtype=np.int32)
+    for i, tb in enumerate(token_bytes_list):
+        if len(tb) > byte_width:
+            raise ValueError(
+                f"token of {len(tb)} bytes exceeds byte_width={byte_width}"
+            )
+        arr = np.frombuffer(tb, dtype=np.uint8)
+        mat[i, : len(arr)] = arr
+        lens[i] = len(arr)
+    return mat, lens
+
+
+def initial_lex_ranks(token_bytes_list: list[bytes], vocab_cap: int) -> np.ndarray:
+    """Dense lex rank of each initial token among all of them.
+
+    Inactive slots (>= len(token_bytes_list)) are filled with -1.
+    """
+    order = sorted(range(len(token_bytes_list)), key=lambda i: token_bytes_list[i])
+    ranks = np.full((vocab_cap,), -1, dtype=np.int32)
+    for rank, idx in enumerate(order):
+        ranks[idx] = rank
+    return ranks
+
+
+def rows_vs_query(
+    token_bytes: torch.Tensor, query: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compare every row of ``token_bytes`` [V, L] against one string [L].
+
+    Returns (less, equal): bool [V] each, row < query and row == query under
+    lexicographic byte-string order.
+    """
+    diff = token_bytes != query[None, :]
+    any_diff = diff.any(dim=1)
+    first = diff.int().argmax(dim=1)  # first differing position
+    row_val = token_bytes.gather(1, first[:, None])[:, 0]
+    less = any_diff & (row_val < query[first])
+    return less, ~any_diff
+
+
+def concat_token_bytes(
+    token_bytes: torch.Tensor,
+    token_len: torch.Tensor,
+    left: int,
+    right: int,
+) -> tuple[torch.Tensor, int]:
+    """Concatenate the byte strings of token ids ``left`` and ``right``.
+
+    Returns (merged [L] int32 padded with -1, merged length). The caller
+    guarantees the concatenation fits in L (a merged token is a substring
+    of a pre-token, whose byte length bounds the table width).
+    """
+    la = int(token_len[left])
+    lb = int(token_len[right])
+    merged = torch.full_like(token_bytes[0], BYTE_PAD)
+    merged[:la] = token_bytes[left, :la]
+    merged[la : la + lb] = token_bytes[right, :lb]
+    return merged, la + lb
+
+
+def insert_lex_rank(
+    lex_rank: torch.Tensor,
+    active_mask: torch.Tensor,
+    less: torch.Tensor,
+) -> tuple[torch.Tensor, int]:
+    """Insertion rank of a new string and the shifted existing ranks.
+
+    Args:
+        lex_rank: int32 [V]; dense ranks of active tokens (-1 inactive).
+        active_mask: bool [V]; which slots hold live tokens.
+        less: bool [V]; rows strictly below the new string.
+
+    Returns:
+        (new_ranks, insert_rank): ranks with every active rank >= insert_rank
+        bumped by one; the new string's rank.
+    """
+    insert_rank = int((less & active_mask).sum())
+    bumped = torch.where(
+        active_mask & (lex_rank >= insert_rank), lex_rank + 1, lex_rank
+    )
+    return bumped, insert_rank
+
+
+__all__ = [
+    "BYTE_PAD",
+    "initial_token_matrix",
+    "initial_lex_ranks",
+    "rows_vs_query",
+    "concat_token_bytes",
+    "insert_lex_rank",
+]

@@ -1,0 +1,288 @@
+"""Merge-loop kernel over a device-resident [V, V] count table.
+
+The port's counterpart of the TPU kernel
+``yabpe_tpu/kernels/hbm_loop.py::_hbm_loop_kernel`` (its entry point is
+``hbm_merge_chunk`` there too). It computes what that kernel computes,
+over a layout chosen for the GPU; the kernels are CUDA C++ in
+``csrc/hbm_loop.cu`` and their design note is at the top of that file.
+
+Three parts live here:
+
+- :class:`HbmState`, the state tensors (all int32, one device);
+- :func:`hbm_merge_chunk`, the wrapper: it runs one chunk of merge steps
+  and updates the state **in place**. For CUDA tensors it launches the
+  kernels (built on first use) and raises on any launch error; for CPU
+  tensors, and only for them, it runs the plain twin;
+- :func:`hbm_merge_chunk_reference`, the plain twin in torch ops. It is
+  deliberately independent of the kernel's bookkeeping: it selects by an
+  exact max over the whole table, applies merges with tensor ops, folds
+  full-word deltas with ``index_add_`` and recomputes ``row_max``
+  exactly.
+
+``LAUNCHES["hbm_merge_chunk"]`` counts the wrapper's kernel launches (one
+per chunk that reaches the card), so a run can show that it went through
+the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass, fields
+
+import torch
+
+from yabpe_tpu_torch.core import lexkey
+
+# Layout of ``HbmState.scalars`` (csrc/hbm_loop.cu names the same slots).
+NEXT_ID = 0
+STOPPED = 1
+NUM_DONE = 2
+N_SCALARS = 8
+
+#: Longest word (in symbols) the apply kernel takes.
+MAX_WORD_WIDTH = 64
+
+#: Kernel launches by wrapper; a caller zeroes an entry to count a run.
+LAUNCHES: dict[str, int] = {"hbm_merge_chunk": 0}
+
+
+@dataclass
+class HbmState:
+    """Merge-loop state, int32 tensors on one device.
+
+    Attributes:
+        words: [N, W] symbol ids, -1 padded; updated in place.
+        freqs: [N] word frequencies.
+        counts: [V, V] exact pair counts.
+        row_max: [V] upper bound on each row's max count (exact after a
+            twin chunk).
+        token_bytes: [V, L] token byte strings, -1 padded.
+        token_len: [V] token byte lengths.
+        lex_rank: [V] dense lex rank among live tokens, -1 for free ids.
+        merges: [M, 3] (left, right, new id) per step, -1 where not taken.
+        scalars: [8] next_id, stopped, num_done, then per-step temporaries.
+    """
+
+    words: torch.Tensor
+    freqs: torch.Tensor
+    counts: torch.Tensor
+    row_max: torch.Tensor
+    token_bytes: torch.Tensor
+    token_len: torch.Tensor
+    lex_rank: torch.Tensor
+    merges: torch.Tensor
+    scalars: torch.Tensor
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [getattr(self, f.name) for f in fields(self)]
+
+    def clone(self) -> "HbmState":
+        return HbmState(*(t.clone() for t in self.tensors()))
+
+    def check(self) -> None:
+        """Raise ValueError unless the tensors have the kernel's layout."""
+        n, w = self.words.shape
+        v = self.counts.shape[0]
+        shapes = {
+            "freqs": (n,), "counts": (v, v), "row_max": (v,),
+            "token_len": (v,), "lex_rank": (v,), "scalars": (N_SCALARS,),
+        }
+        for f in fields(self):
+            t = getattr(self, f.name)
+            if t.dtype != torch.int32 or not t.is_contiguous():
+                raise ValueError(f"HbmState.{f.name} must be contiguous int32")
+            if t.device != self.words.device:
+                raise ValueError("HbmState tensors must share one device")
+            if f.name in shapes and tuple(t.shape) != shapes[f.name]:
+                raise ValueError(
+                    f"HbmState.{f.name} has shape {tuple(t.shape)}, "
+                    f"expected {shapes[f.name]}"
+                )
+        if self.token_bytes.shape[0] != v or self.merges.shape[1:] != (3,):
+            raise ValueError("HbmState token_bytes/merges shapes disagree")
+        if not 2 <= w <= MAX_WORD_WIDTH:
+            raise ValueError(f"word width {w} outside [2, {MAX_WORD_WIDTH}]")
+
+
+def hbm_merge_chunk(
+    state: HbmState,
+    *,
+    chunk_start: int,
+    chunk_size: int,
+    num_merges: int,
+    min_frequency: int,
+) -> None:
+    """Run merge steps [chunk_start, chunk_start + chunk_size), capped at
+    ``num_merges``, updating ``state`` in place.
+
+    CUDA tensors go through the CUDA kernels, on PyTorch's current stream
+    and without a sync; CPU tensors through the twin. Any other device, a
+    build failure or a launch failure raises.
+    """
+    state.check()
+    device = state.words.device
+    if device.type == "cpu":
+        hbm_merge_chunk_reference(
+            state,
+            chunk_start=chunk_start,
+            chunk_size=chunk_size,
+            num_merges=num_merges,
+            min_frequency=min_frequency,
+        )
+        return
+    if device.type != "cuda":
+        raise ValueError(f"hbm_merge_chunk runs on cuda or cpu, not {device}")
+    step_end = min(chunk_start + chunk_size, num_merges)
+    if step_end <= chunk_start:
+        return
+    if state.merges.shape[0] < step_end:
+        raise ValueError("HbmState.merges has fewer rows than steps")
+    lib = _library()
+    n, w = state.words.shape
+    v, byte_width = state.token_bytes.shape
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.yabpe_hbm_merge_chunk(
+            *(t.data_ptr() for t in state.tensors()),
+            n, w, v, byte_width, chunk_start, step_end, min_frequency, stream,
+        )
+    if rc != 0:
+        msg = lib.yabpe_cuda_error_string(rc).decode()
+        raise RuntimeError(f"hbm_merge_chunk: CUDA error {rc}: {msg}")
+    LAUNCHES["hbm_merge_chunk"] += 1
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    from yabpe_tpu_torch.kernels import _build
+
+    lib = _build.load("hbm_loop")
+    lib.yabpe_hbm_merge_chunk.restype = ctypes.c_int
+    lib.yabpe_hbm_merge_chunk.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    lib.yabpe_cuda_error_string.restype = ctypes.c_char_p
+    lib.yabpe_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.yabpe_hbm_max_width.restype = ctypes.c_int
+    lib.yabpe_hbm_max_width.argtypes = []
+    if lib.yabpe_hbm_max_width() != MAX_WORD_WIDTH:
+        raise RuntimeError("csrc/hbm_loop.cu disagrees on MAX_WORD_WIDTH")
+    return lib
+
+
+def hbm_merge_chunk_reference(
+    state: HbmState,
+    *,
+    chunk_start: int,
+    chunk_size: int,
+    num_merges: int,
+    min_frequency: int,
+    tally: dict[str, int] | None = None,
+) -> None:
+    """The plain twin of :func:`hbm_merge_chunk`, in torch ops on any
+    device; updates ``state`` in place.
+
+    ``tally``, when given, accumulates the bytes that the chunk's steps
+    need at least (the least work a kernel could do): ``row_max`` and one
+    verified count row (8V per step), the words that hold the pair (read
+    and written, with their frequencies) and the distinct changed cells
+    (read and written); and, under ``affected_words``, how many words
+    the merges changed.
+    """
+    s = state
+    v = s.counts.shape[0]
+    scal = s.scalars.tolist()
+    if scal[STOPPED]:
+        return
+    next_id, num_done = scal[NEXT_ID], scal[NUM_DONE]
+    ids = torch.arange(v, device=s.counts.device)
+    row_max = s.counts.amax(dim=1)
+    for step in range(chunk_start, min(chunk_start + chunk_size, num_merges)):
+        best = int(row_max.max())
+        if best < max(min_frequency, 1):
+            scal[STOPPED] = 1
+            break
+        a = int(torch.where(row_max == best, s.lex_rank, -1).argmax())
+        b = int(torch.where(s.counts[a] == best, s.lex_rank, -1).argmax())
+
+        merged, merged_len = lexkey.concat_token_bytes(
+            s.token_bytes, s.token_len, a, b
+        )
+        active = ids < next_id
+        less, equal = lexkey.rows_vs_query(s.token_bytes, merged)
+        equal &= active
+        if bool(equal.any()):
+            c = int(equal.int().argmax())
+        else:
+            c = next_id
+            bumped, rank = lexkey.insert_lex_rank(s.lex_rank, active, less)
+            bumped[c] = rank
+            s.lex_rank.copy_(bumped)
+            s.token_bytes[c] = merged
+            s.token_len[c] = merged_len
+            next_id += 1
+        s.merges[step] = torch.tensor([a, b, c], dtype=torch.int32)
+        num_done += 1
+
+        _apply_merge(s, a, b, c, tally)
+        row_max = s.counts.amax(dim=1)
+        if tally is not None:
+            tally["bytes"] = tally.get("bytes", 0) + 8 * v
+
+    s.row_max.copy_(row_max)
+    scal[NEXT_ID], scal[NUM_DONE] = next_id, num_done
+    s.scalars.copy_(torch.tensor(scal, dtype=torch.int32))
+
+
+def _pairs(words: torch.Tensor, freqs: torch.Tensor, v: int):
+    """Flat cell index and frequency of every adjacent pair of ``words``."""
+    left, right = words[:, :-1], words[:, 1:]
+    valid = (left >= 0) & (right >= 0)
+    cell = left.long() * v + right.long()
+    return cell[valid], freqs[:, None].expand_as(left)[valid]
+
+
+def _apply_merge(
+    s: HbmState, a: int, b: int, c: int, tally: dict[str, int] | None
+) -> None:
+    """Leftmost non-overlapping (a, b) -> c in every word that holds the
+    pair, and the matching count deltas."""
+    words = s.words
+    hit = (words[:, :-1] == a) & (words[:, 1:] == b)
+    rows = hit.any(dim=1).nonzero()[:, 0]
+    if rows.numel() == 0:
+        return
+    old = words[rows]
+    hit = hit[rows]
+    n, w = old.shape
+    # A match is taken unless its left symbol is the right symbol of the
+    # match taken just before it.
+    take = torch.zeros_like(hit)
+    prev = torch.zeros_like(hit[:, 0])
+    for k in range(w - 1):
+        prev = hit[:, k] & ~prev
+        take[:, k] = prev
+    new = old.clone()
+    new[:, :-1][take] = c
+    keep = new >= 0
+    keep[:, 1:] &= ~take
+    pos = keep.long().cumsum(dim=1) - 1
+    row_idx = torch.arange(n, device=words.device)[:, None].expand(n, w)
+    out = torch.full_like(old, -1)
+    out[row_idx[keep], pos[keep]] = new[keep]
+    words[rows] = out
+
+    v = s.counts.shape[0]
+    freqs = s.freqs[rows]
+    old_cells, old_f = _pairs(old, freqs, v)
+    new_cells, new_f = _pairs(out, freqs, v)
+    cells = torch.cat([old_cells, new_cells])
+    deltas = torch.cat([-old_f, new_f])
+    s.counts.view(-1).index_add_(0, cells, deltas)
+    if tally is not None:
+        uniq, inverse = torch.unique(cells, return_inverse=True)
+        net = torch.zeros_like(uniq).index_add_(0, inverse, deltas.long())
+        changed = int((net != 0).sum())
+        tally["affected_words"] = tally.get("affected_words", 0) + n
+        tally["bytes"] = tally.get("bytes", 0) + n * (8 * w + 4) + 8 * changed

@@ -1,0 +1,220 @@
+"""Host side of the merge-loop kernel (kernels/hbm_loop) on one device.
+
+Counterpart of yabpe_tpu/train/hbm_driver.py. It admits the problem,
+turns the numpy word table and base vocabulary into the kernel's state
+tensors (:func:`state_from_numpy`), and runs chunks until the merges are
+done or a step stops, with one host sync per chunk to read the stop flag.
+
+The initial pair counts are a [b0, b0] corner (every initial symbol is a
+byte or special id below b0), computed with one numpy bincount and placed
+into a device-zeroed [V, V] table, so no [V, V] array crosses from the
+host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from yabpe_tpu_torch.core import lexkey
+from yabpe_tpu_torch.core.vocab import Vocab
+from yabpe_tpu_torch.core.wordtable import WordTable
+from yabpe_tpu_torch.kernels.hbm_loop import (
+    MAX_WORD_WIDTH,
+    N_SCALARS,
+    NEXT_ID,
+    STOPPED,
+    HbmState,
+    hbm_merge_chunk,
+)
+
+#: Token ids travel in 16 bits inside the kernel's selection keys; the
+#: JAX kernel's cap (31 slabs of 2048 columns) is kept, which covers
+#: GPT-2's 50,257.
+MAX_VOCAB_CAP = 63488
+
+#: The roadmap item that will take problems past these limits.
+_BIGVOCAB = (
+    "the bigvocab engine (ROADMAP.md, queue 1 item 4: incremental and "
+    "large-vocab loop) is not ported yet"
+)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def byte_width(word_width: int, base_tokens: list[bytes]) -> int:
+    """Width L of the token byte matrix: a merged token is a substring of
+    one word, so the longest word or base token bounds it."""
+    longest = max((len(t) for t in base_tokens), default=0)
+    return _round_up(max(word_width, longest, 2), 8)
+
+
+def initial_corner_counts(
+    words: np.ndarray, freqs: np.ndarray, base_size: int
+) -> np.ndarray:
+    """Initial pair counts as a [base, base] int64 corner."""
+    left = words[:, :-1]
+    right = words[:, 1:]
+    valid = (left >= 0) & (right >= 0)
+    keys = np.where(valid, left.astype(np.int64) * base_size + right, 0)
+    wts = np.where(valid, freqs[:, None].astype(np.int64), 0)
+    corner = np.bincount(
+        keys.ravel(), weights=wts.ravel(), minlength=base_size * base_size
+    )
+    return corner.reshape(base_size, base_size).astype(np.int64)
+
+
+def state_bytes(n_words: int, width: int, vocab_cap: int, token_width: int,
+                num_merges: int) -> int:
+    """Device bytes of the kernel state."""
+    v = vocab_cap
+    return 4 * (
+        n_words * (width + 1) + v * v + v * (token_width + 3)
+        + 3 * max(num_merges, 1) + N_SCALARS
+    )
+
+
+def admit(table: WordTable, vocab_cap: int, num_merges: int,
+          token_width: int, device: torch.device) -> None:
+    """Raise NotImplementedError for a problem past the kernel's limits.
+
+    The limits: vocab <= MAX_VOCAB_CAP, word width <= MAX_WORD_WIDTH, total
+    pair mass below 2^31 (the count table's exactness), and the state
+    within the free memory of a CUDA device.
+    """
+    if vocab_cap > MAX_VOCAB_CAP or max(table.width, 2) > MAX_WORD_WIDTH:
+        raise NotImplementedError(
+            f"vocab {vocab_cap} / word width {table.width} exceed the merge "
+            f"kernel's limits (vocab <= {MAX_VOCAB_CAP}, width <= "
+            f"{MAX_WORD_WIDTH}); {_BIGVOCAB}"
+        )
+    lengths = (table.words >= 0).sum(axis=1).astype(np.int64)
+    mass = int((np.maximum(lengths - 1, 0) * table.freqs.astype(np.int64)).sum())
+    if mass >= 2**31:
+        raise NotImplementedError(
+            f"total pair mass {mass} reaches 2^31, past the int32 count "
+            f"table's exactness; {_BIGVOCAB}"
+        )
+    if device.type == "cuda":
+        need = state_bytes(
+            table.words.shape[0], max(table.width, 2), vocab_cap, token_width,
+            num_merges,
+        )
+        free, _ = torch.cuda.mem_get_info(device)
+        if need > free:
+            raise NotImplementedError(
+                f"merge state needs {need} bytes but {device} has {free} "
+                f"free; {_BIGVOCAB}"
+            )
+
+
+def state_from_numpy(
+    words: np.ndarray,
+    freqs: np.ndarray,
+    base_tokens: list[bytes],
+    vocab_cap: int,
+    device: str | torch.device,
+    *,
+    num_merges: int | None = None,
+) -> HbmState:
+    """Build the kernel state on ``device`` from the JAX package's numpy
+    inputs: a WordTable's ``words`` [N, W] / ``freqs`` [N], the base
+    vocabulary's token bytes, and the vocabulary capacity.
+
+    ``num_merges`` sizes the merge record (default: vocab_cap - b0).
+    """
+    device = torch.device(device)
+    b0 = len(base_tokens)
+    v = max(vocab_cap, b0)
+    if num_merges is None:
+        num_merges = v - b0
+    corner = initial_corner_counts(words, freqs, b0)
+    if freqs.max(initial=0) > np.iinfo(np.int32).max or corner.max(
+        initial=0
+    ) > np.iinfo(np.int32).max:
+        raise NotImplementedError(f"a count exceeds int32; {_BIGVOCAB}")
+    token_bytes, token_len = lexkey.initial_token_matrix(
+        base_tokens, v, byte_width(words.shape[1], base_tokens)
+    )
+    lex_rank = lexkey.initial_lex_ranks(base_tokens, v)
+
+    def put(a: np.ndarray) -> torch.Tensor:  # a copy: the state is mutated
+        return torch.tensor(a, dtype=torch.int32, device=device)
+
+    counts = torch.zeros((v, v), dtype=torch.int32, device=device)
+    counts[:b0, :b0] = put(corner)
+    row_max = np.zeros(v, dtype=np.int32)
+    row_max[:b0] = corner.max(axis=1, initial=0)
+    scalars = np.zeros(N_SCALARS, dtype=np.int32)
+    scalars[NEXT_ID] = b0
+    return HbmState(
+        words=put(words),
+        freqs=put(freqs),
+        counts=counts,
+        row_max=put(row_max),
+        token_bytes=put(token_bytes),
+        token_len=put(token_len),
+        lex_rank=put(lex_rank),
+        merges=torch.full((max(num_merges, 1), 3), -1, dtype=torch.int32, device=device),
+        scalars=put(scalars),
+    )
+
+
+def run_hbm_merge_loop(
+    table: WordTable,
+    base_vocab: Vocab,
+    *,
+    vocab_cap: int,
+    num_merges: int,
+    min_frequency: int,
+    chunk_size: int = 2048,
+    device: str | torch.device = "cuda",
+    on_chunk=None,
+) -> np.ndarray:
+    """Run the merge loop on the kernel; returns [num_merges, 3] int32 ids.
+
+    ``on_chunk(state, steps_done)``, when given, sees the state after every
+    chunk (tests use it to recount the table).
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but CUDA is not available")
+    base_tokens = list(base_vocab.tokens())
+    admit(
+        table, max(vocab_cap, len(base_tokens)), num_merges,
+        byte_width(table.width, base_tokens), device,
+    )
+    state = state_from_numpy(
+        table.words, table.freqs, base_tokens, vocab_cap, device,
+        num_merges=num_merges,
+    )
+    chunk = max(1, min(chunk_size, num_merges))
+    start = 0
+    while start < num_merges:
+        hbm_merge_chunk(
+            state,
+            chunk_start=start,
+            chunk_size=chunk,
+            num_merges=num_merges,
+            min_frequency=min_frequency,
+        )
+        start += chunk
+        if on_chunk is not None:
+            on_chunk(state, min(start, num_merges))
+        if int(state.scalars[STOPPED]) != 0:  # the chunk's one host sync
+            break
+    return state.merges[:num_merges].cpu().numpy()
+
+
+__all__ = [
+    "MAX_VOCAB_CAP",
+    "MAX_WORD_WIDTH",
+    "admit",
+    "byte_width",
+    "initial_corner_counts",
+    "run_hbm_merge_loop",
+    "state_bytes",
+    "state_from_numpy",
+]

@@ -1,0 +1,261 @@
+"""The port's merge-loop kernel module (yabpe_tpu_torch.kernels.hbm_loop)
+and train/hbm_driver.py, held against the JAX package.
+
+On the CPU the wrapper runs the kernel's plain twin; the JAX side runs its
+Pallas kernel in interpret mode, as tests/test_hbm_loop.py does. Every
+comparison is exact: all of this is integer arithmetic. The CUDA kernel
+is held against the twin on a card by tests/test_torch_cuda.py.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+from yabpe_tpu.core import lexkey as jax_lexkey
+from yabpe_tpu.core.vocab import Vocab as JaxVocab
+from yabpe_tpu.core.wordtable import WordTable as JaxWordTable
+from yabpe_tpu.train import hbm_driver as jax_driver
+from yabpe_tpu.train.reference_loop import train_merges_oracle as jax_oracle
+from yabpe_tpu_torch.core import lexkey
+from yabpe_tpu_torch.core.vocab import Vocab
+from yabpe_tpu_torch.core.wordtable import WordTable
+from yabpe_tpu_torch.kernels import hbm_loop
+from yabpe_tpu_torch.train import hbm_driver
+from yabpe_tpu_torch.train.state import merges_to_bytes
+
+SPECIALS = ["<|endoftext|>"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and these tensors are small."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def small_corpus(tmp_path_factory):
+    """The corpus of tests/test_hbm_loop.py, counted by the JAX package."""
+    from yabpe_tpu.pretok.ingest import count_pretokens
+
+    text = (
+        "the quick brown fox jumps over the lazy dog. "
+        "the dog barks, the fox runs away! banana bandana anagrams "
+        "low lower lowest newer newest wider widest 123 4567 \n\n"
+    ) * 6 + "naïve café 東京 😀 mixed UP case WORDS"
+    f = tmp_path_factory.mktemp("hbm") / "small.txt"
+    f.write_text(text, encoding="utf-8")
+    counter = count_pretokens([f], SPECIALS, max_workers=1)
+    return counter, JaxWordTable.from_counter(counter)
+
+
+def _port_table(jt) -> WordTable:
+    """The port's WordTable over the same numpy arrays."""
+    return WordTable(jt.words, jt.freqs, jt.num_words, jt.max_len)
+
+
+def _recount(words: np.ndarray, freqs: np.ndarray, v: int) -> np.ndarray:
+    left, right = words[:, :-1], words[:, 1:]
+    valid = (left >= 0) & (right >= 0)
+    keys = (left.astype(np.int64) * v + right)[valid]
+    wts = np.broadcast_to(freqs.astype(np.int64)[:, None], left.shape)[valid]
+    return np.bincount(keys, weights=wts, minlength=v * v).astype(np.int64).reshape(v, v)
+
+
+def _run_port(jt, specials, vocab_size, min_freq, chunk):
+    """Port merges on the CPU twin, recounting the table after each chunk."""
+    base = Vocab.base(specials)
+    num = vocab_size - len(base)
+    chunks = []
+
+    def on_chunk(state, steps_done):
+        counts = state.counts.numpy()
+        want = _recount(state.words.numpy(), state.freqs.numpy(), counts.shape[0])
+        assert np.array_equal(counts, want), f"table != recount at {steps_done}"
+        assert (state.row_max.numpy() >= counts.max(axis=1)).all()
+        chunks.append(steps_done)
+
+    ids = hbm_driver.run_hbm_merge_loop(
+        _port_table(jt), base, vocab_cap=vocab_size, num_merges=num,
+        min_frequency=min_freq, chunk_size=chunk, device="cpu",
+        on_chunk=on_chunk,
+    )
+    return ids, merges_to_bytes(ids, base)[1], chunks
+
+
+def test_twin_matches_jax_kernel_interpret_and_oracle(small_corpus):
+    """vocab 300, min_frequency 1, chunk 16: the port's merge ids equal the
+    JAX kernel's (interpret mode) and the oracle's merges; the count table
+    equals a full recount after every chunk."""
+    counter, jt = small_corpus
+    jbase = JaxVocab.base(SPECIALS)
+    num = 300 - len(jbase)
+    jax_ids = jax_driver.run_hbm_merge_loop(
+        jt, jbase, vocab_cap=300, num_merges=num, min_frequency=1,
+        chunk_size=16, interpret=True,
+    )
+    ids, merges, chunks = _run_port(jt, SPECIALS, 300, 1, 16)
+    assert np.array_equal(ids, np.asarray(jax_ids)[:num])
+    assert merges == jax_oracle(counter, SPECIALS, 300, 1)[1]
+    assert chunks == list(range(16, num, 16)) + [num]
+
+
+@pytest.mark.parametrize("vocab_size,min_freq", [(280, 3), (400, 1)])
+def test_twin_matches_oracle(small_corpus, vocab_size, min_freq):
+    counter, jt = small_corpus
+    _, merges, _ = _run_port(jt, SPECIALS, vocab_size, min_freq, 32)
+    assert merges == jax_oracle(counter, SPECIALS, vocab_size, min_freq)[1]
+
+
+@pytest.mark.parametrize(
+    "name,counter,vocab_size,min_freq",
+    [
+        ("lex_tiebreak", {b"ab": 5, b"cd": 5, b"zy": 5}, 258, 1),
+        ("dedup", {b"abc": 10, b"ab": 6, b"bc": 5, b"zabc": 4}, 264, 1),
+        ("min_frequency_stop", {b"ab": 5, b"cd": 1, b"ef": 1}, 300, 2),
+        ("a_equals_b", {b"aaaa": 7, b"aaa": 3, b"aa": 2, b"baaab": 4}, 262, 1),
+        ("special_bytes", {b"<|eot|>": 50, b"hi": 3}, 262, 1),
+    ],
+)
+def test_edge_cases_match_oracle(name, counter, vocab_size, min_freq):
+    specials = ["<|eot|>"] if name == "special_bytes" else []
+    jt = JaxWordTable.from_counter(Counter(counter))
+    _, merges, _ = _run_port(jt, specials, vocab_size, min_freq, 3)
+    assert merges == jax_oracle(Counter(counter), specials, vocab_size, min_freq)[1]
+    if name == "lex_tiebreak":
+        assert merges[:1] == [(b"z", b"y")]
+    if name == "min_frequency_stop":
+        assert merges == [(b"a", b"b")]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_tables_match_oracle(seed):
+    """Random word tables over a tiny alphabet: ties, dedups, a == b runs
+    and early stops all occur."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcab ", dtype=np.uint8)
+    counter = Counter()
+    for _ in range(int(rng.integers(5, 40))):
+        n = int(rng.integers(1, 14))
+        word = bytes(alphabet[rng.integers(0, len(alphabet), n)].tolist())
+        counter[word] += int(rng.integers(1, 6))
+    vocab_size = 256 + int(rng.integers(5, 60))
+    min_freq = int(rng.integers(1, 4))
+    jt = JaxWordTable.from_counter(counter)
+    _, merges, _ = _run_port(jt, [], vocab_size, min_freq, 7)
+    assert merges == jax_oracle(counter, [], vocab_size, min_freq)[1]
+
+
+def test_state_from_numpy_matches_jax_inputs(small_corpus):
+    _, jt = small_corpus
+    jbase = list(JaxVocab.base(SPECIALS).tokens())
+    b0, v = len(jbase), 300
+    st = hbm_driver.state_from_numpy(jt.words, jt.freqs, jbase, v, "cpu")
+    corner = jax_driver.initial_corner_counts(jt, b0)
+    assert np.array_equal(hbm_driver.initial_corner_counts(jt.words, jt.freqs, b0), corner)
+    counts = st.counts.numpy()
+    assert np.array_equal(counts[:b0, :b0], corner)
+    assert not counts[b0:].any() and not counts[:, b0:].any()
+    assert np.array_equal(st.row_max.numpy()[:b0], corner.max(axis=1))
+    assert np.array_equal(st.words.numpy(), jt.words)
+    assert np.array_equal(st.freqs.numpy(), jt.freqs)
+    width = st.token_bytes.shape[1]
+    tb, tl = jax_lexkey.initial_token_matrix(jbase, v, width)
+    assert np.array_equal(st.token_bytes.numpy(), tb)
+    assert np.array_equal(st.token_len.numpy(), tl)
+    assert np.array_equal(
+        st.lex_rank.numpy(), jax_lexkey.initial_lex_ranks(jbase, v)
+    )
+    assert st.scalars.tolist()[:3] == [b0, 0, 0]
+
+
+def test_torch_lexkey_matches_jax():
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(3)
+    toks = sorted({bytes(rng.integers(97, 100, rng.integers(1, 5)).tolist()) for _ in range(40)})
+    v, width = 64, 8
+    tb, tl = lexkey.initial_token_matrix(toks, v, width)
+    lex = lexkey.initial_lex_ranks(toks, v)
+    active = np.arange(v) < len(toks)
+    for left, right in [(0, 1), (3, 3), (len(toks) - 1, 2)]:
+        want_m, want_len = jax_lexkey.concat_token_bytes(
+            jnp.asarray(tb), jnp.asarray(tl), jnp.int32(left), jnp.int32(right)
+        )
+        got_m, got_len = lexkey.concat_token_bytes(
+            torch.from_numpy(tb), torch.from_numpy(tl), left, right
+        )
+        assert np.array_equal(got_m.numpy(), np.asarray(want_m))
+        assert got_len == int(want_len)
+        want_less, want_eq = jax_lexkey.rows_vs_query(jnp.asarray(tb), want_m)
+        got_less, got_eq = lexkey.rows_vs_query(torch.from_numpy(tb), got_m)
+        assert np.array_equal(got_less.numpy(), np.asarray(want_less))
+        assert np.array_equal(got_eq.numpy(), np.asarray(want_eq))
+        want_r, want_ins = jax_lexkey.insert_lex_rank(
+            jnp.asarray(lex), jnp.asarray(active), want_less
+        )
+        got_r, got_ins = lexkey.insert_lex_rank(
+            torch.from_numpy(lex), torch.from_numpy(active), got_less
+        )
+        assert np.array_equal(got_r.numpy(), np.asarray(want_r))
+        assert got_ins == int(want_ins)
+
+
+def test_admission_limits():
+    base = Vocab.base([])
+    wide = WordTable.from_counter(Counter({b"x" * 70: 1}))
+    with pytest.raises(NotImplementedError, match="bigvocab"):
+        hbm_driver.run_hbm_merge_loop(
+            wide, base, vocab_cap=300, num_merges=44, min_frequency=1,
+            device="cpu",
+        )
+    heavy = WordTable.from_counter(Counter({b"abc": 2**30}))
+    with pytest.raises(NotImplementedError, match="pair mass"):
+        hbm_driver.run_hbm_merge_loop(
+            heavy, base, vocab_cap=300, num_merges=44, min_frequency=1,
+            device="cpu",
+        )
+    narrow = WordTable.from_counter(Counter({b"abc": 3}))
+    with pytest.raises(NotImplementedError, match="vocab"):
+        hbm_driver.run_hbm_merge_loop(
+            narrow, base, vocab_cap=70000, num_merges=10, min_frequency=1,
+            device="cpu",
+        )
+
+
+def test_no_hidden_cpu():
+    """A CUDA request never runs on the CPU: run_hbm_merge_loop raises without a
+    card, and the wrapper takes the twin for CPU tensors only."""
+    table = WordTable.from_counter(Counter({b"abab": 3}))
+    base = Vocab.base([])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            hbm_driver.run_hbm_merge_loop(
+                table, base, vocab_cap=260, num_merges=4, min_frequency=1,
+                device="cuda",
+            )
+    cpu_state = hbm_driver.state_from_numpy(
+        table.words, table.freqs, list(base.tokens()), 260, "cpu"
+    )
+    meta_state = hbm_loop.HbmState(
+        *(torch.empty_like(t, device="meta") for t in cpu_state.tensors())
+    )
+    before = hbm_loop.LAUNCHES["hbm_merge_chunk"]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        hbm_loop.hbm_merge_chunk(
+            meta_state, chunk_start=0, chunk_size=4, num_merges=4,
+            min_frequency=1,
+        )
+    hbm_loop.hbm_merge_chunk(
+        cpu_state, chunk_start=0, chunk_size=4, num_merges=4, min_frequency=1
+    )
+    assert hbm_loop.LAUNCHES["hbm_merge_chunk"] == before  # the twin ran
+    assert cpu_state.merges.tolist()[:2] == [[97, 98, 256], [256, 256, 257]]
+

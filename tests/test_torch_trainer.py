@@ -1,0 +1,155 @@
+"""The port's trainer end to end on the CPU (device="cpu"), held against
+the JAX package's trainer and its snapshot. Every comparison is exact."""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+
+import pytest
+import torch
+
+from yabpe_tpu import BBPETrainer as JaxTrainer
+from yabpe_tpu import BBPETrainerConfig as JaxConfig
+from yabpe_tpu.io import gpt2 as gpt2io
+from yabpe_tpu_torch import BBPEModel, BBPETrainer, BBPETrainerConfig
+from yabpe_tpu_torch.io.native import load_model
+
+from .adapters import run_train_bpe as jax_run_train_bpe
+from .common import DATA, LOCAL_FIXTURES, REF_FIXTURES, REPO
+
+SPECIALS = ["<|endoftext|>"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once,
+    and these tensors are small."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def run_train_bpe(
+    input_path: str | Path,
+    vocab_size: int,
+    special_tokens: list[str],
+    **overrides,
+) -> tuple[dict[int, bytes], list[tuple[bytes, bytes]]]:
+    """Port twin of tests/adapters.py::run_train_bpe, on the device route."""
+    kw = dict(
+        vocab_size=vocab_size,
+        min_frequency=1,
+        max_workers=1,
+        chunk_size_bytes=1024 * 1024 * 1024,
+        special_tokens=special_tokens,
+        device="cpu",
+    )
+    config = BBPETrainerConfig(**{**kw, **overrides})
+    model = BBPETrainer(config).train([Path(input_path)])
+    return {v: k for k, v in model.vocab.items()}, model.merges
+
+
+def test_run_train_bpe_matches_jax_on_large():
+    got = run_train_bpe(DATA / "large.txt", 500, SPECIALS)
+    want = jax_run_train_bpe(DATA / "large.txt", 500, SPECIALS)
+    assert got == want
+    assert len(got[1]) == 500 - 257
+
+
+def test_special_tokens_snapshot(tinystories_5m):
+    """The 5 MB corpus at vocab 1000 reproduces the JAX package's snapshot
+    (tests/_snapshots/test_train_bpe_special_tokens.pkl)."""
+    vocab, merges = run_train_bpe(tinystories_5m, 1000, SPECIALS)
+    for word_bytes in vocab.values():
+        if word_bytes != b"<|endoftext|>":
+            assert b"<|" not in word_bytes
+    with open(REPO / "tests" / "_snapshots" / "test_train_bpe_special_tokens.pkl", "rb") as f:
+        expected = pickle.load(f)
+    assert merges == expected["merges"]
+    assert set(vocab.keys()) == expected["vocab_keys"]
+    assert set(vocab.values()) == expected["vocab_values"]
+
+
+def test_golden_reference_merges():
+    corpus = REF_FIXTURES / "corpus.en"
+    if not corpus.exists():
+        pytest.skip(f"reference fixtures not present at {REF_FIXTURES}")
+    _, merges = run_train_bpe(corpus, 500, SPECIALS)
+    want = gpt2io.load_gpt2_merges(REF_FIXTURES / "train-bpe-reference-merges.txt")
+    assert merges == want
+
+
+@pytest.mark.parametrize(
+    "route",
+    [dict(use_native_loop=True), dict(backend="numpy"), dict(merge_chunk_size=5)],
+    ids=["native", "numpy", "device_small_chunks"],
+)
+def test_routes_agree(route):
+    path = LOCAL_FIXTURES / "bench_5M_realistic.txt"
+    kw = dict(min_frequency=3, chunk_size_bytes=1 << 20, max_workers=4)
+    if route.get("backend") == "numpy":
+        path = DATA / "large.txt"
+    base = run_train_bpe(path, 420, SPECIALS, **kw)
+    assert run_train_bpe(path, 420, SPECIALS, **kw, **route) == base
+
+
+def test_save_matches_jax_trainer_files(tmp_path):
+    cfg = dict(vocab_size=400, min_frequency=2, special_tokens=SPECIALS)
+    port = BBPETrainer(BBPETrainerConfig(**cfg, device="cpu"))
+    model = port.train([DATA / "large.txt"])
+    assert isinstance(model, BBPEModel)
+    port.save(tmp_path / "port")
+    jax = JaxTrainer(JaxConfig(**cfg))
+    jax.train([DATA / "large.txt"])
+    jax.save(tmp_path / "jax")
+    for name in ("vocab.json", "merges.txt", "special_tokens.json"):
+        assert (tmp_path / "port" / name).read_bytes() == (
+            tmp_path / "jax" / name
+        ).read_bytes(), name
+    # merges.txt cannot hold a token with a newline (a documented hazard of
+    # the format), so only the vocab and the specials round-trip exactly.
+    vocab, _, specials = load_model(tmp_path / "port")
+    assert (vocab, specials) == (model.vocab, SPECIALS)
+    assert set(port.last_stats) == set(jax.last_stats)
+    assert port.last_stats["num_merges"] == len(model.merges)
+
+
+def test_not_ported_configurations_raise(tmp_path):
+    for kw, item in [
+        (dict(data_shards=2), "item 9"),
+        (dict(vocab_shards=2), "item 9"),
+        (dict(checkpoint_dir=str(tmp_path)), "item 6"),
+    ]:
+        cfg = BBPETrainerConfig(vocab_size=300, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match=item):
+            BBPETrainer(cfg).train([DATA / "sample.txt"])
+    with pytest.raises(ValueError, match="backend"):
+        BBPETrainer(BBPETrainerConfig(backend="jax")).train([DATA / "sample.txt"])
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    assert BBPETrainerConfig().device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    trainer = BBPETrainer(BBPETrainerConfig(vocab_size=300, min_frequency=1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer.train([DATA / "sample.txt"])
+    # The native host loop needs no device.
+    cfg = BBPETrainerConfig(vocab_size=300, min_frequency=1, use_native_loop=True)
+    assert len(BBPETrainer(cfg).train([DATA / "sample.txt"]).merges) > 0
+
+
+def test_input_errors_and_empty_corpus(tmp_path):
+    trainer = BBPETrainer(BBPETrainerConfig(device="cpu"))
+    with pytest.raises(ValueError, match="At least one file"):
+        trainer.train([])
+    with pytest.raises(FileNotFoundError):
+        trainer.train([tmp_path / "missing.txt"])
+    with pytest.raises(ValueError, match="not been trained"):
+        trainer.save(tmp_path / "out")
+    model = BBPETrainer(
+        BBPETrainerConfig(vocab_size=300, special_tokens=SPECIALS)
+    ).train([DATA / "empty.txt"])
+    assert model.merges == [] and len(model.vocab) == 257
