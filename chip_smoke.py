@@ -9,24 +9,41 @@ checkout of the repository. It imports nothing of JAX or of the JAX
 package. Phases, none of whose failures is caught:
 
 1. card: the device's name and power limit;
-2. build: nvcc builds csrc/hbm_loop.cu for sm_90a and g++ the native
-   scanner, side by side; prints the build time and the ptxas register
-   and shared-memory lines;
-3. kernel against twin: one 2048-step chunk of the merge-loop kernel and
-   of its plain twin from one state, on the 5 MB realistic fixture at
-   vocab 4096; merges, words, counts and the vocab tensors must be
-   exactly equal and row_max at least each row's max;
-4. full width: a 100 MB corpus from scripts/gen_corpus.py (lexicon
+2. build: nvcc builds csrc/hbm_loop.cu (K2) and csrc/fused_loop.cu (K1)
+   for sm_90a and g++ the native library, all three side by side; prints
+   the build time and the ptxas register and shared-memory lines;
+3. K2 against its twin: one 2048-step chunk of the large-vocabulary
+   kernel and of its plain twin from one state, on the 5 MB realistic
+   fixture at vocab 4096; merges, words, counts and the vocab tensors
+   must be exactly equal and row_max at least each row's max;
+4. K2 at full width: a 100 MB corpus from scripts/gen_corpus.py (lexicon
    200,000, seed 7) at vocab 32,000, the configuration of bench.py's
    bench_train_100m_hbm:
-   a. kernel against twin again, for the first chunk at these shapes,
+   a. K2 against its twin again, for the first chunk at these shapes,
       timed by CUDA events, with the bytes the chunk needs at least;
-   b. the main path: BBPETrainer(...).train(files) on the card, with the
-      kernel's launch count zeroed before and read after;
+   b. the large-vocabulary main path: BBPETrainer(...).train(files) on
+      the card, with K2's launch count zeroed before and read after;
    c. the same corpus through the native C++ host loop: the merges must
       be byte-identical;
    d. save() both models and load_model() them back: the files must be
-      byte-identical and the vocab must round-trip.
+      byte-identical and the vocab must round-trip;
+5. K1 against its twin, chunk by chunk from one state: tests/data/
+   large.txt at vocab 1024, min_frequency 2, in chunks of 200 steps (a
+   chunk that does not divide the 767 merges), then the 5 MB TinyStories
+   fixture at vocab 1000, min_frequency 1, in chunks of 256; after every
+   chunk the whole state must be exactly equal; each case's first chunk
+   is timed by CUDA events beside the bytes it needs at least;
+6. the small-vocabulary main path: the settings of the JAX package's
+   snapshot tests/_snapshots/test_train_bpe_special_tokens.pkl
+   (TinyStories 5 MB, vocab 1000) through BBPETrainer(...).train(files)
+   on the card, with both kernels' launch counts zeroed before and read
+   after: K1 must have run and K2 not; the merges and vocab must equal
+   the snapshot and the native host loop's;
+7. the flow's second half: save() and BBPETokenizer.from_file(); decode
+   (encode(text)) must give back the first 1 MB of the fixture and the
+   inline snippets of tests/fixtures_gpt2/golden_encode/gpt2_golden.json,
+   and on the snippets the native encoder's ids must equal the plain
+   per-word encoder's over the native scanner's pre-tokens.
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -35,6 +52,7 @@ are the kernels' JSON record and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -45,6 +63,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SPECIALS = ["<|endoftext|>"]
 CHUNK = 2048
+TINYSTORIES = REPO / "tests" / "fixtures_gpt2" / "tinystories_sample_5M.txt"
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the bound.
 HBM_BYTES_PER_S = 3.35e12
 
@@ -112,6 +131,70 @@ def kernel_vs_twin(label, table, base, vocab_cap, min_frequency, card):
     return ms, plain_ms, tally["bytes"], err
 
 
+def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
+    """K1 and its twin chunk by chunk from one state, the whole state
+    exactly equal after every chunk; returns (kernel ms, twin ms, bytes
+    needed, max abs difference), of the first chunk."""
+    import torch
+
+    from yabpe_tpu_torch.kernels import fused_loop
+    from yabpe_tpu_torch.train.fused_driver import fused_state_from_numpy
+
+    num = vocab_cap - len(base)
+    twin = fused_state_from_numpy(table.words, table.freqs, base, vocab_cap, "cuda", num_merges=num)
+    kern = twin.clone()
+    first = None
+    err = 0
+    chunk_ms = []
+    for start in range(0, num, chunk):
+        kw = dict(chunk_start=start, chunk_size=chunk, num_merges=num, min_frequency=min_frequency)
+        tally: dict[str, int] = {}
+        plain_ms = timed_chunk(fused_loop.fused_merge_chunk_reference, twin, tally=tally, **kw)
+        ms = timed_chunk(fused_loop.fused_merge_chunk, kern, **kw)
+        chunk_ms.append(ms)
+        for name in ("words", "counts", "token_bytes", "token_len", "lex_rank", "merges"):
+            a, b = getattr(kern, name), getattr(twin, name)
+            diff = int((a.long() - b.long()).abs().max())
+            err = max(err, diff)
+            check(diff == 0, f"{label}: K1 and twin differ in {name} after the chunk at {start} (max {diff})")
+        check(torch.equal(kern.scalars[:3], twin.scalars[:3]), f"{label}: scalars differ after the chunk at {start}")
+        if first is None:
+            first = (ms, plain_ms, tally.get("bytes", 0), int(kern.scalars[2]))
+        if int(kern.scalars[1]):
+            break
+    ms, plain_ms, need, steps = first
+    print(f"{label}: V={vocab_cap} N={table.words.shape[0]} W={table.words.shape[1]} "
+          f"chunk={chunk} first_chunk_steps={steps} kernel_chunk_ms={ms} twin_chunk_ms={plain_ms} "
+          f"kernel_us_per_step={1e3 * ms / max(steps, 1)} needed_bytes={need} "
+          f"merges={int(kern.scalars[2])} stopped={int(kern.scalars[1])} "
+          f"kernel_ms_by_chunk={chunk_ms} "
+          f"grid_blocks={fused_loop.grid_blocks(vocab_cap, kern.token_bytes.shape[1])} "
+          f"max_abs_err={err} (tolerance: exact) [{card}]")
+    return ms, plain_ms, need, err
+
+
+def plain_ids(tok, text: str) -> list[int]:
+    """The plain per-word encoder over the native scanner's split: the
+    special tokens (longest first), then GPT-2 pre-tokens."""
+    from yabpe_tpu_torch import native
+
+    data = text.encode("utf-8")
+    specials = sorted((t.encode("utf-8") for t in tok.special_tokens), key=len, reverse=True)
+    starts, which = native.find_specials(data, specials)
+    ids: list[int] = []
+    pos = 0
+    for at, i in zip([*starts.tolist(), len(data)], [*which.tolist(), -1]):
+        segment = data[pos:at]
+        begin = 0
+        for end in native.pretok_offsets(segment).tolist():
+            ids.extend(tok._encode_bytes_impl(segment[begin:end]))
+            begin = end
+        if i >= 0:
+            ids.append(tok._vocab[specials[i]])
+            pos = at + len(specials[i])
+    return ids
+
+
 def main() -> int:
     import torch
 
@@ -126,11 +209,11 @@ def main() -> int:
 
     from gen_corpus import generate
 
-    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig, native
+    from yabpe_tpu_torch import BBPETokenizer, BBPETrainer, BBPETrainerConfig, native
     from yabpe_tpu_torch.core.vocab import Vocab
     from yabpe_tpu_torch.core.wordtable import WordTable
     from yabpe_tpu_torch.io.native import load_model
-    from yabpe_tpu_torch.kernels import _build, hbm_loop
+    from yabpe_tpu_torch.kernels import _build, fused_loop, hbm_loop
     from yabpe_tpu_torch.pretok.ingest import count_pretokens
 
     t_all = time.perf_counter()
@@ -140,17 +223,21 @@ def main() -> int:
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # ---- 2. build, kernel and native scanner side by side
+    # ---- 2. build, both kernels and the native library side by side
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kernel_build = pool.submit(_build.build, "hbm_loop")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        kernel_builds = [pool.submit(_build.build, n) for n in ("hbm_loop", "fused_loop")]
         native_build = pool.submit(native.load)
-        so_path, ptxas = kernel_build.result()
+        built = [b.result() for b in kernel_builds]
         native_build.result()
-    print(f"build: {time.perf_counter() - t0:.3f} s for {so_path.name} and the native scanner")
-    for line in ptxas.splitlines():
-        if "ptxas info" in line and ("registers" in line or "Compiling" in line or "smem" in line):
-            print(f"  {line.strip()}")
+    names = " and ".join(path.name for path, _ in built)
+    print(f"build: {time.perf_counter() - t0:.3f} s for {names} and the native library")
+    for _, ptxas in built:
+        for line in ptxas.splitlines():
+            if "ptxas info" in line and ("registers" in line or "Compiling" in line or "smem" in line):
+                print(f"  {line.strip()}")
+            elif "stack frame" in line:
+                print(f"  {line.strip()}")
 
     base = list(Vocab.base(SPECIALS).tokens())
     ingest = dict(chunk_size_bytes=32 << 20, max_workers=8, align_to_newline=True)
@@ -221,6 +308,76 @@ def main() -> int:
     bound_ms = need / HBM_BYTES_PER_S * 1e3
     print(f"hbm_merge_chunk first chunk at V=32000: kernel {ms} ms, twin {plain_ms} ms, "
           f"bound {bound_ms} ms by bytes [{card}]")
+
+    # ---- 5. K1 against its twin, chunk by chunk
+    large = WordTable.from_counter(count_pretokens([REPO / "tests" / "data" / "large.txt"], SPECIALS))
+    fused_vs_twin("fused_vs_twin_large_v1024", large, base, 1024, 2, 200, card)
+    t0 = time.perf_counter()
+    tiny = WordTable.from_counter(count_pretokens([TINYSTORIES], SPECIALS, max_workers=1))
+    print(f"tinystories word table: {tiny.num_words} words, width {tiny.width}, "
+          f"{time.perf_counter() - t0:.3f} s (host)")
+    k1_ms, k1_plain_ms, k1_need, k1_err = fused_vs_twin(
+        "fused_vs_twin_tinystories_v1000", tiny, base, 1000, 1, 256, card
+    )
+    del large, tiny
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_k1_") as tmp:
+        tmp = Path(tmp)
+        # ---- 6. the small-vocabulary main path: the snapshot's settings
+        cfg = dict(
+            vocab_size=1000, min_frequency=1, max_workers=1,
+            chunk_size_bytes=1 << 30, special_tokens=SPECIALS,
+        )
+        trainer = BBPETrainer(BBPETrainerConfig(**cfg, device="cuda"))
+        fused_loop.LAUNCHES["fused_merge_chunk"] = 0
+        hbm_loop.LAUNCHES["hbm_merge_chunk"] = 0
+        model = trainer.train([TINYSTORIES])
+        k1_launches = fused_loop.LAUNCHES["fused_merge_chunk"]
+        k2_moved = hbm_loop.LAUNCHES["hbm_merge_chunk"]
+        stats = trainer.last_stats
+        n = len(model.merges)
+        print(f"small-vocab main path (device): ingest_s={stats['ingest_seconds']} "
+              f"merge_s={stats['merge_seconds']} merges={n} "
+              f"merges_per_s={n / stats['merge_seconds']} fused_launches={k1_launches} "
+              f"hbm_launches={k2_moved} [{card}]")
+        check(k1_launches > 0, "the small-vocab main path never launched fused_merge_chunk")
+        check(k2_moved == 0, "the small-vocab main path launched hbm_merge_chunk")
+        with open(REPO / "tests" / "_snapshots" / "test_train_bpe_special_tokens.pkl", "rb") as f:
+            snapshot = pickle.load(f)
+        check(model.merges == snapshot["merges"], "K1 merges differ from the snapshot")
+        check(set(model.vocab) == snapshot["vocab_values"], "K1 vocab tokens differ from the snapshot")
+        check(set(model.vocab.values()) == snapshot["vocab_keys"], "K1 vocab ids differ from the snapshot")
+        native_trainer = BBPETrainer(BBPETrainerConfig(**cfg, use_native_loop=True))
+        native_model = native_trainer.train([TINYSTORIES])
+        print(f"native host loop: merge_s={native_trainer.last_stats['merge_seconds']} "
+              f"merges={len(native_model.merges)} (host)")
+        check(model.merges == native_model.merges, "K1 merges differ from the native loop")
+        check(model.vocab == native_model.vocab, "K1 vocab differs from the native loop")
+
+        # ---- 7. save, load, encode and decode
+        trainer.save(tmp / "model")
+        tok = BBPETokenizer.from_file(tmp / "model")
+        with open(TINYSTORIES, encoding="utf-8") as f:
+            text = f.read(1 << 20)
+        t0 = time.perf_counter()
+        ids = tok.encode(text)
+        encode_s = time.perf_counter() - t0
+        check(tok.decode(ids) == text, "decode(encode(text)) differs on the first 1 MB")
+        golden = REPO / "tests" / "fixtures_gpt2" / "golden_encode" / "gpt2_golden.json"
+        snippets = json.loads(golden.read_text(encoding="utf-8"))["snippets"]["texts"]
+        for snippet in snippets:
+            got = tok.encode(snippet)
+            check(tok.decode(got) == snippet, f"round trip differs on {snippet!r}")
+            check(got == plain_ids(tok, snippet), f"native and plain encoders differ on {snippet!r}")
+        nbytes = len(text.encode("utf-8"))
+        print(f"tokenizer: {len(ids)} ids for {nbytes} bytes, host encode "
+              f"{nbytes / encode_s / 1e6} MB/s (one thread, host); round trip exact on "
+              f"{len(snippets)} snippets and the 1 MB prefix")
+
+    k1_bound_ms = k1_need / HBM_BYTES_PER_S * 1e3
+    print(f"fused_merge_chunk first chunk at V=1000: kernel {k1_ms} ms, twin {k1_plain_ms} ms, "
+          f"bound {k1_bound_ms} ms by bytes [{card}]")
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {
         "kernels": [
@@ -236,7 +393,20 @@ def main() -> int:
                 "bound_ms": bound_ms,
                 "bound_by": "bytes",
                 "library_ms": None,
-            }
+            },
+            {
+                "name": "fused_merge_chunk",
+                "route": "cuda",
+                "source": "src/yabpe_tpu_torch/csrc/fused_loop.cu",
+                "replaces": "src/yabpe_tpu/kernels/fused_loop.py:161",
+                "launches": k1_launches,
+                "max_abs_err": k1_err,
+                "ms": k1_ms,
+                "plain_ms": k1_plain_ms,
+                "bound_ms": k1_bound_ms,
+                "bound_by": "bytes",
+                "library_ms": None,
+            },
         ]
     }
     print(json.dumps(record))

@@ -6,17 +6,26 @@ ported so far:
 - :class:`BBPETrainer`       — train a byte-level BPE vocabulary from files.
 - :class:`BBPETrainerConfig` — trainer configuration, plus ``device``.
 - :class:`BBPEModel`         — container for a trained model.
+- :class:`BBPETokenizer`     — encode/decode with a trained or loaded model.
 
-The merge loop runs as hand-written CUDA kernels (``csrc/hbm_loop.cu``)
-over state in device memory; ingestion is the native C++ scanner in
-``native/``. This package imports torch and numpy, never JAX and never
+The merge loop runs as hand-written CUDA kernels over state in device
+memory (``csrc/fused_loop.cu`` for small vocabularies, ``csrc/hbm_loop.cu``
+for large ones); ingestion and host encoding are the native C++ library
+in ``native/``. This package imports torch and numpy, never JAX and never
 the JAX package.
 """
 
+from yabpe_tpu_torch.tok.tokenizer import BBPETokenizer
 from yabpe_tpu_torch.train.config import BBPETrainerConfig
 from yabpe_tpu_torch.train.model import BBPEModel
 from yabpe_tpu_torch.train.trainer import BBPETrainer
 
 __version__ = "0.1.0"
 
-__all__ = ["BBPETrainer", "BBPETrainerConfig", "BBPEModel", "__version__"]
+__all__ = [
+    "BBPETokenizer",
+    "BBPETrainer",
+    "BBPETrainerConfig",
+    "BBPEModel",
+    "__version__",
+]

@@ -42,16 +42,18 @@
 // atomics for the hot cells of the first merges, and a CUDA graph or a
 // persistent kernel over the step chain.
 //
-// Exactness. Counts are exact while the table's total pair mass (the sum
-// of freq * (len - 1)) stays below 2^31, which hbm_driver.py checks: each
-// word thread emits its negative deltas, fences, then its positive ones,
-// so a cell never holds more than the current total mass, even in
-// passing.
+// Exactness. The apply step (merge_apply.cuh, shared with fused_loop.cu)
+// keeps counts exact while the table's total pair mass stays below 2^31,
+// which hbm_driver.py checks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_apply.cuh"
+
 namespace {
+
+using yabpe::kMaxWidth;
 
 enum Scalar : int {
   kNextId = 0,   // first free token id
@@ -64,7 +66,6 @@ enum Scalar : int {
   kNLess = 7,    // live tokens below the merged bytes (its lex rank)
 };
 
-constexpr int kMaxWidth = 64;       // longest word the apply kernel takes
 constexpr int kSelectThreads = 1024;
 constexpr int kThreads = 256;
 
@@ -235,49 +236,10 @@ __global__ void apply_kernel(int* __restrict__ words,
   if (i >= N) return;
   const int a = scalars[kSelA], b = scalars[kSelB];
   int* w = words + static_cast<size_t>(i) * W;
-
-  bool hit = false;
-  int prev = w[0];
-  for (int k = 1; k < W && !hit; ++k) {
-    const int cur = w[k];
-    if (cur < 0) break;
-    hit = prev == a && cur == b;
-    prev = cur;
-  }
-  if (!hit) return;
-
+  if (!yabpe::word_has_pair(w, W, a, b)) return;
   const int eq = scalars[kEqId];
   const int c = eq < 0 ? scalars[kNextId] : eq;
-  const int f = freqs[i];
-  int s[kMaxWidth], t[kMaxWidth];
-  int n = 0;
-  while (n < W && w[n] >= 0) {
-    s[n] = w[n];
-    ++n;
-  }
-  int m = 0, first = -1, last = -1, q_last = -1;
-  for (int k = 0; k < n;) {
-    if (k + 1 < n && s[k] == a && s[k + 1] == b) {
-      if (first < 0) first = k;
-      last = k;
-      q_last = m;
-      t[m++] = c;
-      k += 2;
-    } else {
-      t[m++] = s[k++];
-    }
-  }
-  // Old pairs [first-1, last+1] map onto new pairs [first-1, q_last]; the
-  // pairs outside both windows are the same on either side.
-  for (int k = max(first - 1, 0); k <= min(last + 1, n - 2); ++k)
-    atomicAdd(&counts[static_cast<size_t>(s[k]) * V + s[k + 1]], -f);
-  __threadfence();
-  for (int k = max(first - 1, 0); k <= min(q_last, m - 2); ++k) {
-    const int old = atomicAdd(&counts[static_cast<size_t>(t[k]) * V + t[k + 1]], f);
-    atomicMax(&row_max[t[k]], old + f);
-  }
-  for (int k = 0; k < m; ++k) w[k] = t[k];
-  for (int k = m; k < n; ++k) w[k] = -1;
+  yabpe::merge_word(w, W, freqs[i], a, b, c, counts, V, row_max);
 }
 
 __global__ void finish_kernel(int* __restrict__ scalars) {

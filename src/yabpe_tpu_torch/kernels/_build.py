@@ -6,11 +6,16 @@ header, so one ``nvcc`` call takes seconds:
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
+``fused_loop.cu`` launches one cooperative kernel
+(``cudaLaunchCooperativeKernel`` with a cooperative-groups grid barrier);
+with CUDA 11 and later that needs no relocatable device code, so it
+builds with the same flags and no ``-rdc``.
+
 The library goes into ``_build/kernels/`` beside this package (a directory
-that git ignores), named by a hash of the source, so an edited source is
-rebuilt and an unchanged one is not. A file lock serializes concurrent
-builders. A failed build raises :class:`KernelBuildError`; nothing falls
-back to another path.
+that git ignores), named by a hash of the source and of the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged
+one is not. A file lock serializes concurrent builds. A failed build
+raises :class:`KernelBuildError`; nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -53,8 +58,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

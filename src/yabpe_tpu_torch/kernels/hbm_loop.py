@@ -14,10 +14,11 @@ Three parts live here:
   kernels (built on first use) and raises on any launch error; for CPU
   tensors, and only for them, it runs the plain twin;
 - :func:`hbm_merge_chunk_reference`, the plain twin in torch ops. It is
-  deliberately independent of the kernel's bookkeeping: it selects by an
-  exact max over the whole table, applies merges with tensor ops, folds
-  full-word deltas with ``index_add_`` and recomputes ``row_max``
-  exactly.
+  deliberately independent of the kernel's bookkeeping: its step,
+  :func:`plain_merge_steps` (shared with the twin of
+  ``kernels/fused_loop.py``), selects by an exact max over the whole
+  table, applies merges with tensor ops and folds full-word deltas with
+  ``index_add_``; then it recomputes ``row_max`` exactly.
 
 ``LAUNCHES["hbm_merge_chunk"]`` counts the wrapper's kernel launches (one
 per chunk that reaches the card), so a run can show that it went through
@@ -82,27 +83,36 @@ class HbmState:
 
     def check(self) -> None:
         """Raise ValueError unless the tensors have the kernel's layout."""
-        n, w = self.words.shape
-        v = self.counts.shape[0]
-        shapes = {
-            "freqs": (n,), "counts": (v, v), "row_max": (v,),
-            "token_len": (v,), "lex_rank": (v,), "scalars": (N_SCALARS,),
-        }
-        for f in fields(self):
-            t = getattr(self, f.name)
-            if t.dtype != torch.int32 or not t.is_contiguous():
-                raise ValueError(f"HbmState.{f.name} must be contiguous int32")
-            if t.device != self.words.device:
-                raise ValueError("HbmState tensors must share one device")
-            if f.name in shapes and tuple(t.shape) != shapes[f.name]:
-                raise ValueError(
-                    f"HbmState.{f.name} has shape {tuple(t.shape)}, "
-                    f"expected {shapes[f.name]}"
-                )
-        if self.token_bytes.shape[0] != v or self.merges.shape[1:] != (3,):
-            raise ValueError("HbmState token_bytes/merges shapes disagree")
-        if not 2 <= w <= MAX_WORD_WIDTH:
-            raise ValueError(f"word width {w} outside [2, {MAX_WORD_WIDTH}]")
+        check_state(self)
+
+
+def check_state(state) -> None:
+    """Raise ValueError unless a merge-loop state (this module's
+    :class:`HbmState` or ``kernels.fused_loop.FusedState``) has the
+    kernels' layout: contiguous int32 tensors on one device, consistent
+    shapes, and a word width in [2, MAX_WORD_WIDTH]."""
+    name = type(state).__name__
+    n, w = state.words.shape
+    v = state.counts.shape[0]
+    shapes = {
+        "freqs": (n,), "counts": (v, v), "row_max": (v,),
+        "token_len": (v,), "lex_rank": (v,), "scalars": (N_SCALARS,),
+    }
+    for f in fields(state):
+        t = getattr(state, f.name)
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}.{f.name} must be contiguous int32")
+        if t.device != state.words.device:
+            raise ValueError(f"{name} tensors must share one device")
+        if f.name in shapes and tuple(t.shape) != shapes[f.name]:
+            raise ValueError(
+                f"{name}.{f.name} has shape {tuple(t.shape)}, "
+                f"expected {shapes[f.name]}"
+            )
+    if state.token_bytes.shape[0] != v or state.merges.shape[1:] != (3,):
+        raise ValueError(f"{name} token_bytes/merges shapes disagree")
+    if not 2 <= w <= MAX_WORD_WIDTH:
+        raise ValueError(f"word width {w} outside [2, {MAX_WORD_WIDTH}]")
 
 
 def hbm_merge_chunk(
@@ -181,16 +191,46 @@ def hbm_merge_chunk_reference(
     tally: dict[str, int] | None = None,
 ) -> None:
     """The plain twin of :func:`hbm_merge_chunk`, in torch ops on any
-    device; updates ``state`` in place.
+    device; updates ``state`` in place: :func:`plain_merge_steps`, then
+    ``row_max`` recomputed exactly."""
+    plain_merge_steps(
+        state,
+        chunk_start=chunk_start,
+        chunk_size=chunk_size,
+        num_merges=num_merges,
+        min_frequency=min_frequency,
+        tally=tally,
+    )
+    state.row_max.copy_(state.counts.amax(dim=1))
+
+
+def plain_merge_steps(
+    s,
+    *,
+    chunk_start: int,
+    chunk_size: int,
+    num_merges: int,
+    min_frequency: int,
+    tally: dict[str, int] | None = None,
+) -> None:
+    """Merge steps [chunk_start, chunk_start + chunk_size), capped at
+    ``num_merges``, in plain torch ops, on a merge-loop state (any object
+    with the fields of :class:`HbmState` but ``row_max``); updates it in
+    place. The step of both kernels' twins.
+
+    Each step selects by an exact max over the whole table (ties to the
+    greatest lex rank of the row, then of the column), stops when that
+    count is below ``max(min_frequency, 1)``, grows the vocab (dedup and
+    lex-rank insertion) and applies the merge to every word that holds
+    the pair.
 
     ``tally``, when given, accumulates the bytes that the chunk's steps
-    need at least (the least work a kernel could do): ``row_max`` and one
+    need at least (the least work a kernel could do): a row max and one
     verified count row (8V per step), the words that hold the pair (read
     and written, with their frequencies) and the distinct changed cells
     (read and written); and, under ``affected_words``, how many words
     the merges changed.
     """
-    s = state
     v = s.counts.shape[0]
     scal = s.scalars.tolist()
     if scal[STOPPED]:
@@ -230,7 +270,6 @@ def hbm_merge_chunk_reference(
         if tally is not None:
             tally["bytes"] = tally.get("bytes", 0) + 8 * v
 
-    s.row_max.copy_(row_max)
     scal[NEXT_ID], scal[NUM_DONE] = next_id, num_done
     s.scalars.copy_(torch.tensor(scal, dtype=torch.int32))
 
@@ -243,9 +282,7 @@ def _pairs(words: torch.Tensor, freqs: torch.Tensor, v: int):
     return cell[valid], freqs[:, None].expand_as(left)[valid]
 
 
-def _apply_merge(
-    s: HbmState, a: int, b: int, c: int, tally: dict[str, int] | None
-) -> None:
+def _apply_merge(s, a: int, b: int, c: int, tally: dict[str, int] | None) -> None:
     """Leftmost non-overlapping (a, b) -> c in every word that holds the
     pair, and the matching count deltas."""
     words = s.words

@@ -1,9 +1,10 @@
 """ctypes binding to the native (C++) pre-tokenizer and host merge loop.
 
-Counterpart of yabpe_tpu/native/__init__.py, cut to what this slice calls:
+Counterpart of yabpe_tpu/native/__init__.py, cut to what the port calls:
 the GPT-2 pre-token scanner and word-frequency counter
 (:class:`NativeCounter`), the strict UTF-8 validator, the special-token
-finder and the host merge loop (:func:`train_host_raw`). The library is
+finder, the host merge loop (:func:`train_host_raw`) and the per-word BPE
+encoder of the tokenizer (:class:`NativeEncoder`). The library is
 compiled from ``native/yabpe_native.cpp`` at the repository root, unchanged,
 with g++ into this package's own build directory on first use.
 
@@ -133,6 +134,29 @@ def load() -> ctypes.CDLL:
         lib.yabpe_counter_export.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, _P_I32, _P_I64,
         ]
+        lib.yabpe_encoder_new.restype = ctypes.c_void_p
+        lib.yabpe_encoder_new.argtypes = [
+            ctypes.POINTER(ctypes.c_uint64), _P_I32, _P_I32, ctypes.c_int64,
+            _P_I32, ctypes.c_int32,
+        ]
+        lib.yabpe_encoder_free.restype = None
+        lib.yabpe_encoder_free.argtypes = [ctypes.c_void_p]
+        lib.yabpe_encode_text.restype = ctypes.c_int64
+        lib.yabpe_encode_text.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+            _P_I32, _P_I32, ctypes.c_int32, _P_I32, ctypes.c_int64,
+        ]
+        lib.yabpe_encode_segment.restype = ctypes.c_int64
+        lib.yabpe_encode_segment.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, _P_I32,
+            ctypes.c_int64,
+        ]
+        lib.yabpe_encoder_cache_info.restype = None
+        lib.yabpe_encoder_cache_info.argtypes = [
+            ctypes.c_void_p, _P_I64, _P_I64, _P_I64,
+        ]
+        lib.yabpe_encoder_cache_clear.restype = None
+        lib.yabpe_encoder_cache_clear.argtypes = [ctypes.c_void_p]
         lib.yabpe_train.restype = ctypes.c_void_p
         lib.yabpe_train.argtypes = [
             ctypes.c_char_p, _P_I32, _P_I64, ctypes.c_int64,
@@ -252,6 +276,109 @@ def train_host_raw(
     ]
 
 
+class NativeEncoder:
+    """Per-word BPE encoder handle (extended-symbol space, cached).
+
+    ``live`` maps (left symbol, right symbol) to (merge rank, product
+    symbol) and ``out_ids`` gives each extended symbol's vocab id, as
+    ``tok.symbols.extended_symbol_tables`` builds them.
+    """
+
+    def __init__(
+        self,
+        live: dict[tuple[int, int], tuple[int, int]],
+        out_ids: np.ndarray,
+    ) -> None:
+        self._lib = load()
+        keys = np.array(
+            [(np.uint64(sl) << np.uint64(32)) | np.uint64(sr) for sl, sr in live],
+            dtype=np.uint64,
+        )
+        ranks = np.array([r for r, _ in live.values()], dtype=np.int32)
+        news = np.array([s for _, s in live.values()], dtype=np.int32)
+        out32 = np.ascontiguousarray(out_ids, dtype=np.int32)
+        self._h: int | None = self._lib.yabpe_encoder_new(
+            keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+            _i32p(ranks), _i32p(news), len(keys), _i32p(out32), len(out32),
+        )
+        self._specials_cache: dict = {}
+
+    def _prepared_specials(
+        self, special_bytes: list[bytes], special_ids: list[int]
+    ):
+        """The per-call-constant ctypes argument block, cached by the list
+        *values* (so fresh-but-equal lists hit the cache, and a caller
+        mutating a list in place never gets a stale block)."""
+        key = (tuple(special_bytes), tuple(special_ids))
+        prep = self._specials_cache.get(key)
+        if prep is None:
+            n_sp = len(special_bytes)
+            sp_lens = (ctypes.c_int32 * max(n_sp, 1))(
+                *[len(b) for b in special_bytes]
+            )
+            sp_ids = (ctypes.c_int32 * max(n_sp, 1))(
+                *[i if i is not None else -1 for i in special_ids]
+            )
+            prep = (b"".join(special_bytes), sp_lens, sp_ids, n_sp)
+            if len(self._specials_cache) >= 64:
+                self._specials_cache.clear()
+            self._specials_cache[key] = prep
+        return prep
+
+    def encode_text(
+        self,
+        data: bytes,
+        special_bytes: list[bytes],
+        special_ids: list[int],
+    ) -> np.ndarray:
+        """Split on specials (longest-first order expected) and encode the
+        whole text in one native pass. ``special_ids[i]`` is the vocab id
+        written for ``special_bytes[i]`` (-1 drops it)."""
+        assert self._h is not None
+        n = len(data)
+        out = np.empty(max(n + 1, 1), dtype=np.int32)
+        sp_blob, sp_lens, sp_ids, n_sp = self._prepared_specials(
+            special_bytes, special_ids
+        )
+        count = self._lib.yabpe_encode_text(
+            self._h, data, n, sp_blob, sp_lens, sp_ids, n_sp, _i32p(out),
+            len(out),
+        )
+        return out[:count]
+
+    def encode_segment(self, data: bytes) -> np.ndarray:
+        """Pre-tokenize and BPE-encode a special-free UTF-8 segment."""
+        assert self._h is not None
+        n = len(data)
+        out = np.empty(max(n, 1), dtype=np.int32)
+        count = self._lib.yabpe_encode_segment(self._h, data, n, _i32p(out), n)
+        return out[:count]
+
+    def cache_info(self) -> tuple[int, int, int]:
+        """(hits, misses, cached words)."""
+        assert self._h is not None
+        hits, misses, size = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+        self._lib.yabpe_encoder_cache_info(
+            self._h, ctypes.byref(hits), ctypes.byref(misses), ctypes.byref(size)
+        )
+        return hits.value, misses.value, size.value
+
+    def cache_clear(self) -> None:
+        assert self._h is not None
+        self._lib.yabpe_encoder_cache_clear(self._h)
+
+    def close(self) -> None:
+        if self._h is not None:
+            self._lib.yabpe_encoder_free(self._h)
+            self._h = None
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
 class NativeCounter:
     """Word-frequency counter handle over the native scanner."""
 
@@ -305,6 +432,7 @@ class NativeCounter:
 __all__ = [
     "NativeBuildError",
     "NativeCounter",
+    "NativeEncoder",
     "available",
     "find_specials",
     "load",

@@ -1,0 +1,279 @@
+"""Byte-level BPE tokenizer: encode/decode with a trained or loaded model.
+
+Counterpart of yabpe_tpu/tok/tokenizer.py, cut to its host surface:
+``from_file``, ``from_gpt2_files``, ``encode`` (the native one-pass path
+and its short-text cache), ``encode_batch``, ``encode_iterable``,
+``decode``, ``decode_batch``, ``vocab_size``, ``special_tokens``,
+``get_vocab``, ``clear_cache`` and ``cache_info``. The reference library's
+``BBPETokenizer`` is the parity target of both.
+
+Where the native library builds, ``encode`` is one native pass over the
+text: the special-token split (tokenizer dialect, longest-first),
+pre-tokenization and per-word BPE. Otherwise it pre-tokenizes with the
+``regex`` GPT-2 pattern, compiled at the first such call and never on the
+native path, and encodes each pre-token with the per-word encoder below.
+
+The per-word encoder uses the *batch-merge* formulation: repeatedly find
+the lowest-rank adjacent pair present in the word, then merge every
+leftmost-non-overlapping occurrence of that one pair, and repeat. It is
+equivalent to the reference's one-occurrence-at-a-time heap algorithm: a
+merge of pair (u, v) can only create pairs containing the merged token,
+whose merges were learned *after* (u, v) and so rank strictly higher, so
+every remaining (u, v) occurrence is consumed before any newly created
+pair.
+
+``encode_batch(device=True)`` and ``encode_file`` wait for the device and
+parallel encoders (ROADMAP.md, queue 1 item 7) and raise
+NotImplementedError; neither is served from the host in their place.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterable, Iterator, Sequence
+from functools import lru_cache
+from pathlib import Path
+
+from yabpe_tpu_torch import native
+from yabpe_tpu_torch.io.native import load_model
+
+_CACHE_SIZE = 8192
+
+_NOT_PORTED = (
+    "is not ported yet (ROADMAP.md, queue 1 item 7: tok/device_encode.py "
+    "and tok/parallel_encode.py)"
+)
+
+
+class BBPETokenizer:
+    """Byte-level BPE tokenizer."""
+
+    def __init__(
+        self,
+        vocab: dict[bytes, int] | None = None,
+        merges: list[tuple[bytes, bytes]] | None = None,
+        special_tokens: list[str] | None = None,
+    ) -> None:
+        self._vocab: dict[bytes, int] = vocab or {}
+        self._vocab_inv: dict[int, bytes] = {v: k for k, v in self._vocab.items()}
+        self._merges: list[tuple[bytes, bytes]] = merges or []
+        self._special_tokens: list[str] = special_tokens or []
+        self._special_set: frozenset[str] = frozenset(self._special_tokens)
+
+        self._merge_ranks: dict[tuple[bytes, bytes], int] = {
+            pair: rank for rank, pair in enumerate(self._merges)
+        }
+        self._patterns = None  # (GPT-2 pattern, special splitter), lazily
+        self._specials_longest_first_bytes = [
+            s.encode("utf-8")
+            for s in sorted(self._special_tokens, key=len, reverse=True)
+        ]
+        self._unk_id: int = self._vocab.get(b"[UNK]", 0)
+        self._specials_vocab_ids = [
+            self._vocab.get(b, -1) for b in self._specials_longest_first_bytes
+        ]
+
+        self._encode_word_cached = lru_cache(maxsize=_CACHE_SIZE)(
+            self._encode_word_impl
+        )
+        # Short texts are served from a result cache: the native one-pass
+        # call has a fixed dispatch cost that a repeated short text need
+        # not pay again (fresh list per call, tuples cached).
+        self._encode_short_cached = lru_cache(maxsize=_CACHE_SIZE)(
+            self._encode_short_impl
+        )
+        self._native_encoder = None  # built lazily by encode()
+
+    @classmethod
+    def from_file(cls, model_dir: str | Path) -> "BBPETokenizer":
+        """Load a tokenizer from a native-dialect model directory."""
+        vocab, merges, special_tokens = load_model(model_dir)
+        return cls(vocab=vocab, merges=merges, special_tokens=special_tokens)
+
+    @classmethod
+    def from_gpt2_files(
+        cls,
+        vocab_json: str | Path,
+        merges_txt: str | Path,
+        special_tokens: list[str] | None = None,
+    ) -> "BBPETokenizer":
+        """Load GPT-2-dialect files (printable-unicode remap), as published
+        with the GPT-2 release; see yabpe_tpu_torch.io.gpt2."""
+        from yabpe_tpu_torch.io import gpt2 as gpt2io
+
+        vocab = gpt2io.load_gpt2_vocab(vocab_json)
+        merges = gpt2io.load_gpt2_merges(merges_txt)
+        if special_tokens is None:
+            special_tokens = ["<|endoftext|>"] if b"<|endoftext|>" in vocab else []
+        return cls(vocab=vocab, merges=merges, special_tokens=special_tokens)
+
+    # ------------------------------------------------------------------ encode
+
+    def encode(self, text: str) -> list[int]:
+        """Encode text into token ids."""
+        if not text:
+            return []
+        if native.available():
+            if len(text) <= 64:
+                return list(self._encode_short_cached(text))
+            return self._encode_native(text).tolist()
+        out: list[int] = []
+        pattern, splitter = self._regex_patterns()
+        if splitter is None:
+            self._encode_plain(text, pattern, out)
+            return out
+        for part in splitter.split(text):
+            if not part:
+                continue
+            if part in self._special_set:
+                sid = self._vocab.get(part.encode("utf-8"))
+                if sid is not None:
+                    out.append(sid)
+            else:
+                self._encode_plain(part, pattern, out)
+        return out
+
+    def _encode_native(self, text: str):
+        return self._get_native_encoder().encode_text(
+            text.encode("utf-8"),
+            self._specials_longest_first_bytes,
+            self._specials_vocab_ids,
+        )
+
+    def _encode_short_impl(self, text: str) -> tuple[int, ...]:
+        return tuple(self._encode_native(text).tolist())
+
+    def _regex_patterns(self):
+        if self._patterns is None:
+            from yabpe_tpu_torch.pretok.patterns import (
+                compile_gpt2_pattern,
+                compile_special_splitter,
+            )
+
+            self._patterns = (
+                compile_gpt2_pattern(),
+                compile_special_splitter(self._special_tokens),
+            )
+        return self._patterns
+
+    def _encode_plain(self, text: str, pattern, out: list[int]) -> None:
+        """Regex pre-tokenization and the cached per-word encoder."""
+        cached = self._encode_word_cached
+        for word in pattern.findall(text):
+            out.extend(cached(word))
+
+    def _get_native_encoder(self):
+        if self._native_encoder is None:
+            from yabpe_tpu_torch.tok.symbols import extended_symbol_tables
+
+            _, live, out_ids = extended_symbol_tables(
+                self._vocab, self._merges, self._unk_id
+            )
+            self._native_encoder = native.NativeEncoder(live, out_ids)
+        return self._native_encoder
+
+    def _encode_word_impl(self, word: str) -> tuple[int, ...]:
+        """BPE-encode one pre-token (batch-merge formulation, see module doc)."""
+        return self._encode_bytes_impl(word.encode("utf-8"))
+
+    def _encode_bytes_impl(self, data: bytes) -> tuple[int, ...]:
+        if not data:
+            return ()
+        vocab = self._vocab
+        if len(data) == 1:
+            return (vocab.get(data, self._unk_id),)
+
+        ranks = self._merge_ranks
+        syms: list[bytes] = [data[i : i + 1] for i in range(len(data))]
+        while len(syms) > 1:
+            best_rank: int | None = None
+            best_pair: tuple[bytes, bytes] | None = None
+            for i in range(len(syms) - 1):
+                r = ranks.get((syms[i], syms[i + 1]))
+                if r is not None and (best_rank is None or r < best_rank):
+                    best_rank = r
+                    best_pair = (syms[i], syms[i + 1])
+            if best_pair is None:
+                break
+            merged = best_pair[0] + best_pair[1]
+            new_syms: list[bytes] = []
+            i = 0
+            n = len(syms)
+            while i < n:
+                if i + 1 < n and syms[i] == best_pair[0] and syms[i + 1] == best_pair[1]:
+                    new_syms.append(merged)
+                    i += 2
+                else:
+                    new_syms.append(syms[i])
+                    i += 1
+            syms = new_syms
+
+        unk = self._unk_id
+        return tuple(vocab.get(s, unk) for s in syms)
+
+    def encode_batch(
+        self,
+        texts: Sequence[str],
+        *,
+        device: bool = False,
+        data_shards: int | None = None,
+    ) -> list[list[int]]:
+        """Encode multiple texts on the host. ``device=True`` (the batched
+        device encoder, sharded by ``data_shards``) raises
+        NotImplementedError."""
+        if device:
+            raise NotImplementedError(f"encode_batch(device=True) {_NOT_PORTED}")
+        return [self.encode(t) for t in texts]
+
+    def encode_iterable(self, iterable: Iterable[str]) -> Iterator[int]:
+        """Stream token ids for an iterable of text pieces (bounded memory)."""
+        for piece in iterable:
+            yield from self.encode(piece)
+
+    def encode_file(self, path, **kwargs):
+        """Whole-file parallel encoding; raises NotImplementedError."""
+        raise NotImplementedError(f"encode_file {_NOT_PORTED}")
+
+    # ------------------------------------------------------------------ decode
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Decode token ids back to text (unknown ids are skipped)."""
+        if not ids:
+            return ""
+        inv = self._vocab_inv
+        data = b"".join(inv[i] for i in ids if i in inv)
+        return data.decode("utf-8", errors="replace")
+
+    def decode_batch(self, ids_batch: Sequence[Sequence[int]]) -> list[str]:
+        return [self.decode(ids) for ids in ids_batch]
+
+    # ------------------------------------------------------------- introspection
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._vocab)
+
+    @property
+    def special_tokens(self) -> list[str]:
+        return self._special_tokens.copy()
+
+    def get_vocab(self) -> dict[str, int]:
+        return {k.decode("latin-1"): v for k, v in self._vocab.items()}
+
+    def clear_cache(self) -> None:
+        self._encode_word_cached.cache_clear()
+        self._encode_short_cached.cache_clear()
+        if self._native_encoder is not None:
+            self._native_encoder.cache_clear()
+
+    def cache_info(self) -> str:
+        info = self._encode_word_cached.cache_info()
+        hits, misses, size = info.hits, info.misses, info.currsize
+        if self._native_encoder is not None:
+            n_hits, n_misses, n_size = self._native_encoder.cache_info()
+            hits += n_hits
+            misses += n_misses
+            size += n_size
+        return f"hits={hits}, misses={misses}, size={size}/{info.maxsize}"
+
+
+__all__ = ["BBPETokenizer"]

@@ -1,9 +1,9 @@
 """Trainer configuration.
 
 Counterpart of yabpe_tpu/train/config.py: field-for-field parity with the
-reference dataclass (its trainer.py:17-38), the engine knobs this slice of
-the port acts on, and ``device``. The JAX package's TPU engine knobs
-(``count_strategy``, ``use_fused_kernel``, ``use_hbm_kernel``,
+reference dataclass (its trainer.py:17-38), the engine knobs the port
+acts on so far, and ``device``. The JAX package's TPU engine knobs
+(``count_strategy``, ``use_hbm_kernel``,
 ``spec_merges_per_round``, ``hbm_sharded_cps``, ``ingest_processes``,
 ``checkpoint_every_chunks``) have no counterpart here. ``seed`` is kept
 for interface compatibility; training is fully deterministic and never
@@ -41,6 +41,11 @@ class BBPETrainerConfig:
         max_pair_table_bytes: guard rail for the dense [V, V] count table.
         checkpoint_dir: checkpointed training; not ported yet, so a value
             raises NotImplementedError.
+        use_fused_kernel: on the device route, run the merge loop on the
+            small-vocabulary kernel (kernels/fused_loop.py) (True), never
+            (False), or when the problem fits its admission (None). True
+            past the admission raises ValueError. Results are identical
+            either way.
         use_native_loop: True runs the native C++ host merge loop; None or
             False runs the device merge loop. Results are identical either
             way.
@@ -66,6 +71,7 @@ class BBPETrainerConfig:
     # table) while still catching nonsense sizes.
     max_pair_table_bytes: int = 11 * 1024 * 1024 * 1024
     checkpoint_dir: str | None = None
+    use_fused_kernel: bool | None = None
     use_native_loop: bool | None = None
     device: str = "cuda"
 

@@ -190,10 +190,23 @@ def run_hbm_merge_loop(
         table.words, table.freqs, base_tokens, vocab_cap, device,
         num_merges=num_merges,
     )
+    return run_chunks(
+        hbm_merge_chunk, state, num_merges=num_merges,
+        min_frequency=min_frequency, chunk_size=chunk_size, on_chunk=on_chunk,
+    )
+
+
+def run_chunks(
+    merge_chunk, state, *, num_merges: int, min_frequency: int,
+    chunk_size: int, on_chunk=None,
+) -> np.ndarray:
+    """Call ``merge_chunk`` (a kernel wrapper) on ``state`` chunk by chunk
+    until the merges are done or a step stops, with one host sync per
+    chunk; returns the merge record, [num_merges, 3] int32 ids."""
     chunk = max(1, min(chunk_size, num_merges))
     start = 0
     while start < num_merges:
-        hbm_merge_chunk(
+        merge_chunk(
             state,
             chunk_start=start,
             chunk_size=chunk,
@@ -214,6 +227,7 @@ __all__ = [
     "admit",
     "byte_width",
     "initial_corner_counts",
+    "run_chunks",
     "run_hbm_merge_loop",
     "state_bytes",
     "state_from_numpy",

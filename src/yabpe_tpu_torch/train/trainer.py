@@ -6,8 +6,10 @@ validation). Routing, which in this slice of the port is explicit:
 
 - ``backend="numpy"``: the host oracle (train/reference_loop.py);
 - ``use_native_loop=True``: the native C++ host merge loop;
-- otherwise the device route: the merge-loop kernel
-  (kernels/hbm_loop.py) on ``config.device``.
+- otherwise the device route on ``config.device``: the small-vocabulary
+  kernel (kernels/fused_loop.py) for problems within its admission
+  (:meth:`BBPETrainer._should_use_fused`), the large-vocabulary kernel
+  (kernels/hbm_loop.py) for the rest.
 
 Every route gives the same merges. The JAX package's crossover model was
 measured on a TPU and is not carried over; measurements on the GPU will
@@ -165,6 +167,7 @@ class BBPETrainer:
         import torch
 
         from yabpe_tpu_torch.train import state as train_state
+        from yabpe_tpu_torch.train.fused_driver import run_fused_merge_loop
         from yabpe_tpu_torch.train.hbm_driver import run_hbm_merge_loop
 
         cfg = self.config
@@ -186,8 +189,14 @@ class BBPETrainer:
                 f"vocab_cap={vocab_cap}; raise max_pair_table_bytes or lower "
                 "vocab_size"
             )
-        merges_ids = run_hbm_merge_loop(
-            WordTable.from_counter(counter),
+        table = WordTable.from_counter(counter)
+        run = (
+            run_fused_merge_loop
+            if self._should_use_fused(table, vocab_cap)
+            else run_hbm_merge_loop
+        )
+        merges_ids = run(
+            table,
             base,
             vocab_cap=vocab_cap,
             num_merges=num_merges,
@@ -196,6 +205,36 @@ class BBPETrainer:
             device=device,
         )
         return train_state.merges_to_bytes(merges_ids, base)
+
+    def _should_use_fused(self, table: WordTable, vocab_cap: int) -> bool:
+        """Route a device problem to the small-vocabulary kernel.
+
+        Counterpart of the JAX trainer's ``_should_use_fused``, with the
+        same admission (``fused_applicable``, copied verbatim) so that both
+        packages send the same problems to this kernel. ``False`` never
+        takes it; ``True`` takes it or raises ValueError past the
+        admission. Unlike the JAX package, auto (``None``) does not ask
+        for a TPU: there the test keeps the Pallas kernel off backends
+        where it would run interpreted, while here the kernel is the
+        device route's own, on the card or as its plain twin on the CPU.
+        """
+        from yabpe_tpu_torch.train.fused_driver import fused_applicable
+
+        cfg = self.config
+        if cfg.use_fused_kernel is False:
+            return False
+        fits = fused_applicable(
+            int(table.words.shape[0]),
+            int(table.words.shape[1]),
+            vocab_cap,
+            max(table.width, 2),
+        )
+        if cfg.use_fused_kernel is True and not fits:
+            raise ValueError(
+                "use_fused_kernel=True but the problem exceeds the "
+                "kernel's VMEM budget"
+            )
+        return fits
 
     def save(self, output_dir: str | Path) -> None:
         """Persist the trained model to disk (native latin-1 dialect)."""

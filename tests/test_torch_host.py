@@ -37,8 +37,14 @@ DATA_FILES = ["empty", "large", "multiline", "sample", "simple", "unicode"]
 def test_import_leaves_out_jax_and_the_jax_package():
     code = (
         "import sys, yabpe_tpu_torch, yabpe_tpu_torch.train.hbm_driver, "
-        "yabpe_tpu_torch.pretok.ingest, yabpe_tpu_torch.kernels._build\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "yabpe_tpu_torch.pretok.ingest, yabpe_tpu_torch.kernels._build, "
+        "yabpe_tpu_torch.kernels.fused_loop, yabpe_tpu_torch.train.fused_driver, "
+        "yabpe_tpu_torch.tok, yabpe_tpu_torch.io.gpt2\n"
+        "tok = yabpe_tpu_torch.BBPETokenizer("
+        "{b'a': 0, b'b': 1, b' ': 2, b'ab': 3, b' ab': 4}, "
+        "[(b'a', b'b'), (b' ', b'ab')], [])\n"
+        "assert tok.encode('abab ab' * 20)[:4] == [3, 3, 4, 3], tok.encode('abab ab')\n"
+        "bad =[m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'yabpe_tpu' or m.startswith('yabpe_tpu.') or m == 'regex']\n"
         "print(bad)\n"
     )

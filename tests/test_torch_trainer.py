@@ -83,16 +83,30 @@ def test_golden_reference_merges():
 
 @pytest.mark.parametrize(
     "route",
-    [dict(use_native_loop=True), dict(backend="numpy"), dict(merge_chunk_size=5)],
-    ids=["native", "numpy", "device_small_chunks"],
+    [
+        dict(use_native_loop=True),
+        dict(backend="numpy"),
+        dict(merge_chunk_size=5),
+        dict(use_fused_kernel=False),
+        dict(use_fused_kernel=True),
+    ],
+    ids=["native", "numpy", "device_small_chunks", "no_fused_kernel", "fused_kernel"],
 )
 def test_routes_agree(route):
+    """On the 5 MB realistic fixture the device route runs K2 (past the
+    small-vocabulary admission); on large.txt it runs K1, and
+    ``use_fused_kernel=False`` holds K2 to it there."""
     path = LOCAL_FIXTURES / "bench_5M_realistic.txt"
     kw = dict(min_frequency=3, chunk_size_bytes=1 << 20, max_workers=4)
-    if route.get("backend") == "numpy":
+    if "backend" in route or "use_fused_kernel" in route:
         path = DATA / "large.txt"
     base = run_train_bpe(path, 420, SPECIALS, **kw)
     assert run_train_bpe(path, 420, SPECIALS, **kw, **route) == base
+
+
+def test_forced_fused_kernel_past_its_admission_raises():
+    with pytest.raises(ValueError, match="use_fused_kernel=True"):
+        run_train_bpe(DATA / "large.txt", 4096, SPECIALS, use_fused_kernel=True)
 
 
 def test_save_matches_jax_trainer_files(tmp_path):
