@@ -43,7 +43,20 @@ package. Phases, none of whose failures is caught:
    (encode(text)) must give back the first 1 MB of the fixture and the
    inline snippets of tests/fixtures_gpt2/golden_encode/gpt2_golden.json,
    and on the snippets the native encoder's ids must equal the plain
-   per-word encoder's over the native scanner's pre-tokens.
+   per-word encoder's over the native scanner's pre-tokens;
+8. the data-sharded flow on phase 4's 100 MB table at vocab 32,000, in 4
+   word shards cut as dist/hbm_sharded.py cuts them:
+   a. the replay kernel K3 (csrc/replay_emit.cu) against its twin on every
+      shard from one state, with phase 4b's first 16 merges as the chain,
+      cps 64 and the loop's cps0: the words, the ok flags and every step's
+      net delta (summed by cell on the card) must be exactly equal; each
+      call timed by CUDA events beside the bytes it must move;
+   b. the sharded main path: BBPETrainer(...).train(files) with
+      data_shards=4 and use_hbm_kernel=True on the card, with K3's launch
+      count zeroed before and read after; the merges and vocab must equal
+      phase 4c's native loop; prints the merge seconds, epochs, commits
+      per epoch, fallbacks, peak device memory and the epochs' split into
+      select / replay / validate / commit.
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -173,6 +186,67 @@ def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
     return ms, plain_ms, need, err
 
 
+def replay_vs_twin(table, chain, shards, cps, card):
+    """K3 and its twin from one state on every shard of ``table``, cut as
+    the sharded loop cuts it; returns (kernel ms, twin ms, bytes to move,
+    max abs difference), each summed or maxed over the shards: one
+    epoch's replay. The kernel's ms is the mean of 5 calls."""
+    import torch
+
+    from yabpe_tpu_torch.dist.hbm_sharded import log_plan, shard_rows
+    from yabpe_tpu_torch.kernels import replay_emit
+
+    n = table.words.shape[0]
+    cps0 = log_plan(n, table.width, shards, len(chain), cps)[1]
+    chain_t = torch.tensor(chain, dtype=torch.int32, device="cuda")
+    parts = [
+        (torch.tensor(table.words[lo:hi], dtype=torch.int32, device="cuda"),
+         torch.tensor(table.freqs[lo:hi], dtype=torch.int32, device="cuda"))
+        for lo, hi in shard_rows(n, shards)
+    ]
+    kw = dict(cps=cps, cps0=cps0)
+    replay_emit.replay_emit_chunk(*parts[0], chain_t, **kw)  # first launch of the process
+    total_ms = total_plain_ms = total_need = err = 0
+    for d, (words, freqs) in enumerate(parts):
+        tally: dict[str, int] = {}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        twin = replay_emit.replay_emit_chunk_reference(words, freqs, chain_t, tally=tally, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        reps = 5  # warm: the outputs' blocks come from the allocator's cache
+        start.record()
+        for _ in range(reps):
+            kern = replay_emit.replay_emit_chunk(words, freqs, chain_t, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        diff = int((kern[0].long() - twin[0].long()).abs().max())
+        check(diff == 0, f"replay shard {d}: K3 and twin differ in words (max {diff})")
+        check(torch.equal(kern[4], twin[4]), f"replay shard {d}: ok flags differ")
+        for j, ok in enumerate(kern[4].tolist()):
+            if not ok:
+                continue
+            a = replay_emit.step_net_delta(*kern[1:4], j, vocab_cap=32000, **kw)
+            b = replay_emit.step_net_delta(*twin[1:4], j, vocab_cap=32000, **kw)
+            check(torch.equal(a[0], b[0]), f"replay shard {d}: step {j} cells differ")
+            step_diff = int((a[1] - b[1]).abs().max()) if a[1].numel() else 0
+            diff = max(diff, step_diff)
+            check(step_diff == 0, f"replay shard {d}: step {j} net deltas differ")
+        print(f"replay_vs_twin_100M_v32000 shard {d}: N={words.shape[0]} W={words.shape[1]} "
+              f"K={len(chain)} cps={cps} cps0={cps0} ok={kern[4].tolist()} "
+              f"affected_words={tally['affected_words']} cells={tally['cells']} "
+              f"kernel_ms={ms} twin_ms={plain_ms} bytes={tally['bytes']} "
+              f"max_abs_err={diff} (tolerance: exact) [{card}]")
+        total_ms += ms
+        total_plain_ms += plain_ms
+        total_need += tally["bytes"]
+        err = max(err, diff)
+    return total_ms, total_plain_ms, total_need, err
+
+
 def plain_ids(tok, text: str) -> list[int]:
     """The plain per-word encoder over the native scanner's split: the
     special tokens (longest first), then GPT-2 pre-tokens."""
@@ -213,7 +287,7 @@ def main() -> int:
     from yabpe_tpu_torch.core.vocab import Vocab
     from yabpe_tpu_torch.core.wordtable import WordTable
     from yabpe_tpu_torch.io.native import load_model
-    from yabpe_tpu_torch.kernels import _build, fused_loop, hbm_loop
+    from yabpe_tpu_torch.kernels import _build, fused_loop, hbm_loop, replay_emit
     from yabpe_tpu_torch.pretok.ingest import count_pretokens
 
     t_all = time.perf_counter()
@@ -223,14 +297,16 @@ def main() -> int:
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # ---- 2. build, both kernels and the native library side by side
+    # ---- 2. build, the three kernels and the native library side by side
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        kernel_builds = [pool.submit(_build.build, n) for n in ("hbm_loop", "fused_loop")]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        kernel_builds = [
+            pool.submit(_build.build, n) for n in ("hbm_loop", "fused_loop", "replay_emit")
+        ]
         native_build = pool.submit(native.load)
         built = [b.result() for b in kernel_builds]
         native_build.result()
-    names = " and ".join(path.name for path, _ in built)
+    names = ", ".join(path.name for path, _ in built)
     print(f"build: {time.perf_counter() - t0:.3f} s for {names} and the native library")
     for _, ptxas in built:
         for line in ptxas.splitlines():
@@ -247,9 +323,11 @@ def main() -> int:
     small = WordTable.from_counter(count_pretokens([fixture], SPECIALS, **ingest))
     kernel_vs_twin("kernel_vs_twin_5M_v4096", small, base, 4096, 2, card)
 
+    # the 100 MB corpus and its word table serve phases 4 and 8
+    corpus_dir = tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_corpus_")
+    corpus = Path(corpus_dir.name) / "corpus_100M.txt"
     with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_") as tmp:
         tmp = Path(tmp)
-        corpus = tmp / "corpus_100M.txt"
         t0 = time.perf_counter()
         generate(str(corpus), 100.0, lexicon_size=200_000)
         print(f"corpus: {corpus.stat().st_size} bytes in {time.perf_counter() - t0:.3f} s (host)")
@@ -262,7 +340,6 @@ def main() -> int:
         ms, plain_ms, need, err = kernel_vs_twin(
             "kernel_vs_twin_100M_v32000", full, base, 32000, 2, card
         )
-        del full
 
         # ---- 4b. the main path through the kernel
         cfg = dict(
@@ -294,6 +371,7 @@ def main() -> int:
               f"merges={len(native_model.merges)} (host)")
         check(model.merges == native_model.merges, "device merges differ from the native loop")
         check(model.vocab == native_model.vocab, "device vocab differs from the native loop")
+        big_native = native_model  # phase 8's reference
 
         # ---- 4d. save and load
         trainer.save(tmp / "device_model")
@@ -378,6 +456,51 @@ def main() -> int:
     k1_bound_ms = k1_need / HBM_BYTES_PER_S * 1e3
     print(f"fused_merge_chunk first chunk at V=1000: kernel {k1_ms} ms, twin {k1_plain_ms} ms, "
           f"bound {k1_bound_ms} ms by bytes [{card}]")
+
+    # ---- 8a. K3 against its twin on the 4 shards of the 100 MB table
+    vocab_ids = big_native.vocab
+    chain = [
+        (vocab_ids[left], vocab_ids[right], vocab_ids[left + right])
+        for left, right in big_native.merges[:16]
+    ]
+    k3_ms, k3_plain_ms, k3_need, k3_err = replay_vs_twin(full, chain, 4, 64, card)
+    k3_bound_ms = k3_need / HBM_BYTES_PER_S * 1e3
+    del full
+
+    # ---- 8b. the sharded main path
+    cfg = dict(
+        vocab_size=32000, min_frequency=2, max_workers=8,
+        chunk_size_bytes=32 << 20, special_tokens=SPECIALS,
+        align_chunks_to_newline=True,
+    )
+    trainer = BBPETrainer(BBPETrainerConfig(
+        **cfg, data_shards=4, use_hbm_kernel=True, device="cuda",
+    ))
+    torch.cuda.reset_peak_memory_stats()
+    replay_emit.LAUNCHES["replay_emit_chunk"] = 0
+    sharded_model = trainer.train([corpus])
+    k3_launches = replay_emit.LAUNCHES["replay_emit_chunk"]
+    peak = torch.cuda.max_memory_allocated()
+    stats, loop = trainer.last_stats, trainer.loop_stats
+    n = len(sharded_model.merges)
+    epochs = loop["epochs"]
+    print(f"sharded main path (device, 4 shards): ingest_s={stats['ingest_seconds']} "
+          f"merge_s={stats['merge_seconds']} merges={n} "
+          f"merges_per_s={n / stats['merge_seconds']} epochs={epochs} "
+          f"commits_per_epoch={n / epochs} fallbacks={loop['fallbacks']} "
+          f"select_cuts={loop['select_cuts']} chain_inexact={loop['chain_inexact']} "
+          f"replay_launches={k3_launches} max_memory_allocated={peak} B [{card}]")
+    total = sum(loop["phase_ms"].values())
+    print("sharded main path per epoch: " + ", ".join(
+        f"{name} {phase_ms / epochs} ms ({100 * phase_ms / total} %)"
+        for name, phase_ms in loop["phase_ms"].items()
+    ) + f"; loop {1e3 * loop['loop_seconds'] / epochs} ms by the host clock [{card}]")
+    check(k3_launches > 0, "the sharded main path never launched replay_emit_chunk")
+    check(sharded_model.merges == big_native.merges, "sharded merges differ from the native loop")
+    check(sharded_model.vocab == big_native.vocab, "sharded vocab differs from the native loop")
+    corpus_dir.cleanup()
+    print(f"replay_emit_chunk, one epoch's chain over 4 shards at V=32000: kernel {k3_ms} ms, "
+          f"twin {k3_plain_ms} ms, bound {k3_bound_ms} ms by bytes [{card}]")
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {
         "kernels": [
@@ -404,6 +527,19 @@ def main() -> int:
                 "ms": k1_ms,
                 "plain_ms": k1_plain_ms,
                 "bound_ms": k1_bound_ms,
+                "bound_by": "bytes",
+                "library_ms": None,
+            },
+            {
+                "name": "replay_emit_chunk",
+                "route": "cuda",
+                "source": "src/yabpe_tpu_torch/csrc/replay_emit.cu",
+                "replaces": "src/yabpe_tpu/kernels/replay_emit.py:82",
+                "launches": k3_launches,
+                "max_abs_err": k3_err,
+                "ms": k3_ms,
+                "plain_ms": k3_plain_ms,
+                "bound_ms": k3_bound_ms,
                 "bound_by": "bytes",
                 "library_ms": None,
             },

@@ -12,7 +12,8 @@ value, padded fixed-width comparison reproduces the shorter-string-is-prefix
 rule ("ab" < "abc") for free.
 
 The numpy helpers build the initial state on the host; the torch functions
-are the plain versions that the merge kernel's twin uses on any device.
+are the plain versions that the merge kernels' twins and the sharded
+loop's vocabulary update use on any device, without a host sync.
 """
 
 from __future__ import annotations
@@ -75,20 +76,29 @@ def rows_vs_query(
 def concat_token_bytes(
     token_bytes: torch.Tensor,
     token_len: torch.Tensor,
-    left: int,
-    right: int,
-) -> tuple[torch.Tensor, int]:
-    """Concatenate the byte strings of token ids ``left`` and ``right``.
+    left: int | torch.Tensor,
+    right: int | torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Concatenate the byte strings of token ids ``left`` and ``right``
+    (ints or 0-d integer tensors).
 
-    Returns (merged [L] int32 padded with -1, merged length). The caller
-    guarantees the concatenation fits in L (a merged token is a substring
-    of a pre-token, whose byte length bounds the table width).
+    Returns (merged [L] int32 padded with -1, merged length as a 0-d
+    tensor). Gathers only, so a device caller never waits on the host. The
+    caller guarantees the concatenation fits in L (a merged token is a
+    substring of a pre-token, whose byte length bounds the table width).
     """
-    la = int(token_len[left])
-    lb = int(token_len[right])
-    merged = torch.full_like(token_bytes[0], BYTE_PAD)
-    merged[:la] = token_bytes[left, :la]
-    merged[la : la + lb] = token_bytes[right, :lb]
+    width = token_bytes.shape[1]
+    if isinstance(left, torch.Tensor):
+        pick = torch.stack([left.long(), right.long()])
+    else:
+        pick = torch.tensor([left, right], device=token_bytes.device)
+    rows = token_bytes.index_select(0, pick)
+    la, lb = token_len.index_select(0, pick).unbind()
+    d = torch.arange(width, device=token_bytes.device)
+    from_right = rows[1].gather(0, (d - la).clamp(0, width - 1))
+    merged = torch.where(
+        d < la, rows[0], torch.where(d < la + lb, from_right, BYTE_PAD)
+    )
     return merged, la + lb
 
 
@@ -96,7 +106,7 @@ def insert_lex_rank(
     lex_rank: torch.Tensor,
     active_mask: torch.Tensor,
     less: torch.Tensor,
-) -> tuple[torch.Tensor, int]:
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Insertion rank of a new string and the shifted existing ranks.
 
     Args:
@@ -106,9 +116,9 @@ def insert_lex_rank(
 
     Returns:
         (new_ranks, insert_rank): ranks with every active rank >= insert_rank
-        bumped by one; the new string's rank.
+        bumped by one; the new string's rank, a 0-d tensor.
     """
-    insert_rank = int((less & active_mask).sum())
+    insert_rank = (less & active_mask).sum().to(lex_rank.dtype)
     bumped = torch.where(
         active_mask & (lex_rank >= insert_rank), lex_rank + 1, lex_rank
     )

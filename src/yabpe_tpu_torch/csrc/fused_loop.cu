@@ -15,7 +15,9 @@
 // when that count is below max(min_frequency, 1); otherwise grow the
 // vocab (merged bytes, dedup against live tokens, lex-rank insertion) and
 // apply the leftmost non-overlapping merge to every word that holds the
-// pair, folding the count deltas into the table (merge_apply.cuh).
+// pair, folding the count deltas into the table (merge_apply.cuh, the
+// apply step shared with hbm_loop.cu and replay_emit.cu, with its table
+// sink).
 //
 // What bounds it on this card. The problems this kernel takes are small
 // (the driver admits them by the JAX package's 48 MB plan, V about 1000 or
@@ -220,10 +222,11 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
+    yabpe::TableSink sink{counts, V, nullptr};
     for (int i = gtid; i < N; i += gsize) {
       int* w = words + static_cast<size_t>(i) * W;
       if (yabpe::word_has_pair(w, W, a, b))
-        yabpe::merge_word(w, W, freqs[i], a, b, c, counts, V, nullptr);
+        yabpe::merge_word(w, W, freqs[i], a, b, c, sink);
     }
     next_id += grow ? 1 : 0;
     num_done += 1;

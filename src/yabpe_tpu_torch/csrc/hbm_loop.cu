@@ -42,9 +42,9 @@
 // atomics for the hot cells of the first merges, and a CUDA graph or a
 // persistent kernel over the step chain.
 //
-// Exactness. The apply step (merge_apply.cuh, shared with fused_loop.cu)
-// keeps counts exact while the table's total pair mass stays below 2^31,
-// which hbm_driver.py checks.
+// Exactness. The apply step (merge_apply.cuh, shared with fused_loop.cu
+// and replay_emit.cu), with its table sink, keeps counts exact while the
+// table's total pair mass stays below 2^31, which hbm_driver.py checks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -239,7 +239,8 @@ __global__ void apply_kernel(int* __restrict__ words,
   if (!yabpe::word_has_pair(w, W, a, b)) return;
   const int eq = scalars[kEqId];
   const int c = eq < 0 ? scalars[kNextId] : eq;
-  yabpe::merge_word(w, W, freqs[i], a, b, c, counts, V, row_max);
+  yabpe::TableSink sink{counts, V, row_max};
+  yabpe::merge_word(w, W, freqs[i], a, b, c, sink);
 }
 
 __global__ void finish_kernel(int* __restrict__ scalars) {

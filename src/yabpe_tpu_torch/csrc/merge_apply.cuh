@@ -1,15 +1,24 @@
 // Word-parallel apply step of a BPE merge, shared by the merge-loop kernels
-// (hbm_loop.cu, fused_loop.cu).
+// (hbm_loop.cu, fused_loop.cu) and the replay kernel (replay_emit.cu).
 //
 // One thread owns one word: it takes the leftmost non-overlapping (a, b)
-// -> c in place, compacts the word, and folds the pairs of the changed
-// window into the [V, V] count table: old pairs -freq, new pairs +freq.
+// -> c in place, compacts the word, and hands the pairs of the changed
+// window to a sink: old pairs -freq, new pairs +freq. The pairs outside
+// the window are the same before and after, so the window's cells carry
+// the word's whole net delta.
 //
-// Exactness. Counts are exact while the table's total pair mass (the sum
-// of freq * (len - 1)) stays below 2^31, which the drivers check: each
-// word thread emits its negative deltas, fences, then its positive ones,
-// so a cell never holds more than the current total mass, even in
-// passing.
+// Sinks. TableSink folds the cells into the [V, V] count table (K1, K2);
+// LogSink appends them to one step's cell log (K3). A sink has:
+//   reserve(n)       called once, before the cells, with their number;
+//   sub(l, r, f)     an old pair, weight -f;
+//   fence()          between the old pairs and the new ones;
+//   add(l, r, f)     a new pair, weight +f.
+//
+// Exactness of TableSink. Counts are exact while the table's total pair
+// mass (the sum of freq * (len - 1)) stays below 2^31, which the drivers
+// check: each word thread emits its negative deltas, fences, then its
+// positive ones, so a cell never holds more than the current total mass,
+// even in passing.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,12 +40,59 @@ __device__ __forceinline__ bool word_has_pair(const int* w, int W, int a,
   return false;
 }
 
-// Merges (a, b) -> c in a word that holds the pair, with its count deltas.
-// `row_max`, when not null, is an upper bound on each row's max count,
-// raised by every positive delta.
+// Folds cells into the [V, V] count table. `row_max`, when not null, is an
+// upper bound on each row's max count, raised by every positive delta.
+struct TableSink {
+  int* counts;
+  int V;
+  int* row_max;
+
+  __device__ __forceinline__ void reserve(int) {}
+  __device__ __forceinline__ void sub(int l, int r, int f) {
+    atomicAdd(&counts[static_cast<size_t>(l) * V + r], -f);
+  }
+  __device__ __forceinline__ void fence() { __threadfence(); }
+  __device__ __forceinline__ void add(int l, int r, int f) {
+    const int old = atomicAdd(&counts[static_cast<size_t>(l) * V + r], f);
+    if (row_max != nullptr) atomicMax(&row_max[l], old + f);
+  }
+};
+
+// Appends cells (left, right, weight) to one step's log of `cap` slots.
+// reserve() takes a run of slots with one atomicAdd on the step's cursor;
+// a run that passes `cap` clears the step's ok flag and writes only the
+// slots below `cap`.
+struct LogSink {
+  int* left;
+  int* right;
+  int* weight;
+  int cap;
+  int* cursor;
+  int* ok;
+  int slot;
+
+  __device__ __forceinline__ void reserve(int n) {
+    slot = atomicAdd(cursor, n);
+    if (slot + n > cap) *ok = 0;
+  }
+  __device__ __forceinline__ void put(int l, int r, int w) {
+    if (slot < cap) {
+      left[slot] = l;
+      right[slot] = r;
+      weight[slot] = w;
+    }
+    ++slot;
+  }
+  __device__ __forceinline__ void sub(int l, int r, int f) { put(l, r, -f); }
+  __device__ __forceinline__ void fence() {}
+  __device__ __forceinline__ void add(int l, int r, int f) { put(l, r, f); }
+};
+
+// Merges (a, b) -> c in a word that holds the pair, handing the changed
+// window's cells to `sink`.
+template <class Sink>
 __device__ __forceinline__ void merge_word(int* w, int W, int f, int a, int b,
-                                           int c, int* counts, int V,
-                                           int* row_max) {
+                                           int c, Sink& sink) {
   int s[kMaxWidth], t[kMaxWidth];
   int n = 0;
   while (n < W && w[n] >= 0) {
@@ -55,16 +111,15 @@ __device__ __forceinline__ void merge_word(int* w, int W, int f, int a, int b,
       t[m++] = s[k++];
     }
   }
-  // Old pairs [first-1, last+1] map onto new pairs [first-1, q_last]; the
-  // pairs outside both windows are the same on either side.
-  for (int k = max(first - 1, 0); k <= min(last + 1, n - 2); ++k)
-    atomicAdd(&counts[static_cast<size_t>(s[k]) * V + s[k + 1]], -f);
-  __threadfence();
-  for (int k = max(first - 1, 0); k <= min(q_last, m - 2); ++k) {
-    const int old =
-        atomicAdd(&counts[static_cast<size_t>(t[k]) * V + t[k + 1]], f);
-    if (row_max != nullptr) atomicMax(&row_max[t[k]], old + f);
-  }
+  // Old pairs [lo, old_hi] map onto new pairs [lo, new_hi]; the pairs
+  // outside both windows are the same on either side.
+  const int lo = max(first - 1, 0);
+  const int old_hi = min(last + 1, n - 2);
+  const int new_hi = min(q_last, m - 2);
+  sink.reserve(max(old_hi - lo + 1, 0) + max(new_hi - lo + 1, 0));
+  for (int k = lo; k <= old_hi; ++k) sink.sub(s[k], s[k + 1], f);
+  sink.fence();
+  for (int k = lo; k <= new_hi; ++k) sink.add(t[k], t[k + 1], f);
   for (int k = 0; k < m; ++k) w[k] = t[k];
   for (int k = m; k < n; ++k) w[k] = -1;
 }

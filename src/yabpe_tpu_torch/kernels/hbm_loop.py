@@ -274,22 +274,35 @@ def plain_merge_steps(
     s.scalars.copy_(torch.tensor(scal, dtype=torch.int32))
 
 
-def _pairs(words: torch.Tensor, freqs: torch.Tensor, v: int):
-    """Flat cell index and frequency of every adjacent pair of ``words``."""
+def _pairs(words: torch.Tensor, freqs: torch.Tensor, mask: torch.Tensor | None = None):
+    """(left, right, frequency) of every adjacent pair of ``words``, or of
+    those where ``mask`` [n, w - 1] is set."""
     left, right = words[:, :-1], words[:, 1:]
     valid = (left >= 0) & (right >= 0)
-    cell = left.long() * v + right.long()
-    return cell[valid], freqs[:, None].expand_as(left)[valid]
+    if mask is not None:
+        valid &= mask
+    return left[valid], right[valid], freqs[:, None].expand_as(left)[valid]
 
 
-def _apply_merge(s, a: int, b: int, c: int, tally: dict[str, int] | None) -> None:
-    """Leftmost non-overlapping (a, b) -> c in every word that holds the
-    pair, and the matching count deltas."""
-    words = s.words
+def merge_rows(
+    words: torch.Tensor, freqs: torch.Tensor, a: int, b: int, c: int,
+    *, window: bool = False,
+):
+    """Leftmost non-overlapping (a, b) -> c, in place, in every word of
+    ``words`` [N, W] that holds the pair.
+
+    Returns None when no word holds it, else the delta cells (left, right,
+    weight) and the number of words changed. The cells are every old pair
+    at -freq and every new pair at +freq of each changed word or, with
+    ``window``, only the pairs of its changed window: from the pair before
+    the first merge to the pair after the last one (the cells that the
+    CUDA apply step of ``csrc/merge_apply.cuh`` emits, in the same number).
+    Either way they sum to the same net delta.
+    """
     hit = (words[:, :-1] == a) & (words[:, 1:] == b)
     rows = hit.any(dim=1).nonzero()[:, 0]
     if rows.numel() == 0:
-        return
+        return None
     old = words[rows]
     hit = hit[rows]
     n, w = old.shape
@@ -310,14 +323,40 @@ def _apply_merge(s, a: int, b: int, c: int, tally: dict[str, int] | None) -> Non
     out[row_idx[keep], pos[keep]] = new[keep]
     words[rows] = out
 
+    freqs = freqs[rows]
+    old_mask = new_mask = None
+    if window:
+        first = take.int().argmax(dim=1)
+        last = (w - 2) - take.flip(1).int().argmax(dim=1)
+        q_last = pos.gather(1, last[:, None])[:, 0]
+        lo = (first - 1).clamp(min=0)[:, None]
+        k = torch.arange(w - 1, device=words.device)[None, :]
+        old_hi = torch.minimum(last + 1, (old >= 0).sum(dim=1) - 2)[:, None]
+        new_hi = torch.minimum(q_last, (out >= 0).sum(dim=1) - 2)[:, None]
+        old_mask = (k >= lo) & (k <= old_hi)
+        new_mask = (k >= lo) & (k <= new_hi)
+    old_l, old_r, old_f = _pairs(old, freqs, old_mask)
+    new_l, new_r, new_f = _pairs(out, freqs, new_mask)
+    cells = (
+        torch.cat([old_l, new_l]),
+        torch.cat([old_r, new_r]),
+        torch.cat([-old_f, new_f]),
+    )
+    return cells, n
+
+
+def _apply_merge(s, a: int, b: int, c: int, tally: dict[str, int] | None) -> None:
+    """Leftmost non-overlapping (a, b) -> c in every word that holds the
+    pair, and the matching count deltas."""
+    applied = merge_rows(s.words, s.freqs, a, b, c)
+    if applied is None:
+        return
+    (left, right, deltas), n = applied
     v = s.counts.shape[0]
-    freqs = s.freqs[rows]
-    old_cells, old_f = _pairs(old, freqs, v)
-    new_cells, new_f = _pairs(out, freqs, v)
-    cells = torch.cat([old_cells, new_cells])
-    deltas = torch.cat([-old_f, new_f])
+    cells = left.long() * v + right.long()
     s.counts.view(-1).index_add_(0, cells, deltas)
     if tally is not None:
+        w = s.words.shape[1]
         uniq, inverse = torch.unique(cells, return_inverse=True)
         net = torch.zeros_like(uniq).index_add_(0, inverse, deltas.long())
         changed = int((net != 0).sum())

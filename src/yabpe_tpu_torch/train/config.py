@@ -2,9 +2,8 @@
 
 Counterpart of yabpe_tpu/train/config.py: field-for-field parity with the
 reference dataclass (its trainer.py:17-38), the engine knobs the port
-acts on so far, and ``device``. The JAX package's TPU engine knobs
-(``count_strategy``, ``use_hbm_kernel``,
-``spec_merges_per_round``, ``hbm_sharded_cps``, ``ingest_processes``,
+acts on so far, with the JAX package's defaults, and ``device``. The JAX
+package's other engine knobs (``count_strategy``, ``ingest_processes``,
 ``checkpoint_every_chunks``) have no counterpart here. ``seed`` is kept
 for interface compatibility; training is fully deterministic and never
 uses it.
@@ -36,8 +35,11 @@ class BBPETrainerConfig:
         align_chunks_to_newline: end ingestion chunks at newlines so
             pre-tokens never straddle chunk boundaries (off for strict
             reference parity).
-        data_shards, vocab_shards: sharded training; values above 1 are not
-            ported yet and raise NotImplementedError.
+        data_shards: word shards of the data-sharded merge loop
+            (dist/hbm_sharded.py), one process holding all of them; above
+            1 it needs ``use_hbm_kernel=True``, else NotImplementedError.
+        vocab_shards: vocabulary sharding; above 1 it is not ported yet
+            and raises NotImplementedError.
         max_pair_table_bytes: guard rail for the dense [V, V] count table.
         checkpoint_dir: checkpointed training; not ported yet, so a value
             raises NotImplementedError.
@@ -49,6 +51,16 @@ class BBPETrainerConfig:
         use_native_loop: True runs the native C++ host merge loop; None or
             False runs the device merge loop. Results are identical either
             way.
+        use_hbm_kernel: with ``data_shards`` > 1, True runs the
+            data-sharded loop, whose word shards go through the replay
+            kernel (kernels/replay_emit.py); a problem past its limits
+            raises ValueError. Not read with one shard, where the device
+            route is chosen by ``use_fused_kernel``.
+        spec_merges_per_round: merges per speculative epoch of the
+            data-sharded loop; 0 or 1 means the default of 16.
+        hbm_sharded_cps: cell-log capacity of the data-sharded loop, in
+            rows of 128 cells per chain step past the first; a tuning knob
+            (an overflowing step is never committed), not a correctness one.
         device: where the device merge loop runs: "cuda" (default) or "cpu".
             "cuda" without a CUDA device raises; it never falls back.
     """
@@ -73,6 +85,9 @@ class BBPETrainerConfig:
     checkpoint_dir: str | None = None
     use_fused_kernel: bool | None = None
     use_native_loop: bool | None = None
+    use_hbm_kernel: bool | None = None
+    spec_merges_per_round: int = 0
+    hbm_sharded_cps: int = 64
     device: str = "cuda"
 
 

@@ -6,8 +6,11 @@ validation). Routing, which in this slice of the port is explicit:
 
 - ``backend="numpy"``: the host oracle (train/reference_loop.py);
 - ``use_native_loop=True``: the native C++ host merge loop;
-- otherwise the device route on ``config.device``: the small-vocabulary
-  kernel (kernels/fused_loop.py) for problems within its admission
+- otherwise the device route on ``config.device``: with ``data_shards`` >
+  1 and ``use_hbm_kernel=True``, the data-sharded loop
+  (dist/hbm_sharded.py, the replay kernel kernels/replay_emit.py on every
+  word shard); with one shard, the small-vocabulary kernel
+  (kernels/fused_loop.py) for problems within its admission
   (:meth:`BBPETrainer._should_use_fused`), the large-vocabulary kernel
   (kernels/hbm_loop.py) for the rest.
 
@@ -15,7 +18,9 @@ Every route gives the same merges. The JAX package's crossover model was
 measured on a TPU and is not carried over; measurements on the GPU will
 set the default. The device route never falls back: no CUDA device, a
 failed build of the native scanner or of the kernel, or a problem past
-the kernel's limits raises.
+the kernel's limits raises; where the JAX trainer restarts a problem that
+the data-sharded loop rejects on its XLA sharded loop, which is not
+ported, this one lets the error rise.
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ class BBPETrainer:
         self._vocab: dict[bytes, int] = {}
         self._merges: list[tuple[bytes, bytes]] = []
         self.last_stats: dict[str, float] = {}
+        #: The data-sharded loop's ``stats_out`` for the last train() that
+        #: ran it (epochs, fallbacks, ...), else empty.
+        self.loop_stats: dict = {}
 
     def train(self, files: Sequence[str | Path]) -> BBPEModel:
         """Train a BBPE model from one or more UTF-8 text files."""
@@ -53,6 +61,7 @@ class BBPETrainer:
             raise ValueError("At least one file must be provided")
         cfg = self.config
         self._check_config()
+        self.loop_stats = {}
 
         # Training owns this process's hot allocation path: opt in to the
         # arena-friendly glibc tuning here (NOT at library import).
@@ -150,10 +159,16 @@ class BBPETrainer:
         cfg = self.config
         if cfg.backend not in ("torch", "numpy"):
             raise ValueError(f"unknown backend {cfg.backend!r}")
-        if (cfg.data_shards or 1) > 1 or (cfg.vocab_shards or 1) > 1:
+        if (cfg.vocab_shards or 1) > 1:
             raise NotImplementedError(
-                "sharded training (data_shards/vocab_shards > 1) is not "
+                "vocabulary-sharded training (vocab_shards > 1) is not "
                 "ported yet (ROADMAP.md, queue 1 item 9: distributed)"
+            )
+        if (cfg.data_shards or 1) > 1 and cfg.use_hbm_kernel is not True:
+            raise NotImplementedError(
+                "data_shards > 1 runs only the data-sharded kernel loop "
+                "(use_hbm_kernel=True); the XLA sharded loop is not ported "
+                "yet (ROADMAP.md, queue 1 item 9: distributed)"
             )
         if cfg.checkpoint_dir:
             raise NotImplementedError(
@@ -190,6 +205,26 @@ class BBPETrainer:
                 "vocab_size"
             )
         table = WordTable.from_counter(counter)
+        if (cfg.data_shards or 1) > 1:
+            self._check_hbm_sharded(table, vocab_cap)
+            from yabpe_tpu_torch.dist.hbm_sharded import (
+                run_hbm_sharded_merge_loop,
+            )
+
+            spec = cfg.spec_merges_per_round
+            merges_ids = run_hbm_sharded_merge_loop(
+                table,
+                base,
+                vocab_cap=vocab_cap,
+                num_merges=num_merges,
+                min_frequency=cfg.min_frequency,
+                data_shards=cfg.data_shards,
+                spec_batch=spec if spec > 1 else 16,
+                cps=cfg.hbm_sharded_cps,
+                device=device,
+                stats_out=self.loop_stats,
+            )
+            return train_state.merges_to_bytes(merges_ids, base)
         run = (
             run_fused_merge_loop
             if self._should_use_fused(table, vocab_cap)
@@ -205,6 +240,24 @@ class BBPETrainer:
             device=device,
         )
         return train_state.merges_to_bytes(merges_ids, base)
+
+    def _check_hbm_sharded(self, table: WordTable, vocab_cap: int) -> None:
+        """Raise ValueError for a problem past the data-sharded loop's
+        limits, as the JAX trainer's ``_should_use_hbm_sharded`` does for
+        ``use_hbm_kernel=True``; this trainer runs in one process."""
+        from yabpe_tpu_torch.dist.hbm_sharded import hbm_sharded_applicable
+
+        if not hbm_sharded_applicable(
+            int(table.words.shape[0]),
+            int(table.words.shape[1]),
+            vocab_cap,
+            data_shards=self.config.data_shards,
+        ):
+            raise ValueError(
+                "use_hbm_kernel=True with data_shards > 1 but the problem "
+                "exceeds the sharded-HBM loop's limits (vocab <= 63488, "
+                "word width <= 64, per-shard log plan)"
+            )
 
     def _should_use_fused(self, table: WordTable, vocab_cap: int) -> bool:
         """Route a device problem to the small-vocabulary kernel.

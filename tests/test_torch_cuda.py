@@ -21,7 +21,8 @@ import torch
 from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
 from yabpe_tpu_torch.core.vocab import Vocab
 from yabpe_tpu_torch.core.wordtable import WordTable
-from yabpe_tpu_torch.kernels import fused_loop, hbm_loop
+from yabpe_tpu_torch.dist import hbm_sharded
+from yabpe_tpu_torch.kernels import fused_loop, hbm_loop, replay_emit
 from yabpe_tpu_torch.pretok.ingest import count_pretokens
 from yabpe_tpu_torch.train import fused_driver, hbm_driver
 
@@ -137,3 +138,138 @@ def test_trainer_on_cuda_without_fused_kernel_runs_k2():
     assert fused_loop.LAUNCHES["fused_merge_chunk"] == fused_before
     k1 = BBPETrainer(BBPETrainerConfig(**cfg, use_fused_kernel=True)).train([DATA / "large.txt"])
     assert k2.merges == k1.merges and k2.vocab == k1.vocab
+
+
+def _replay_vs_twin(words, freqs, chain, cps, cps0, vocab_cap):
+    """K3 and its twin on one shard: words, ok flags and every step's net
+    delta equal; returns the kernel's ok flags."""
+    before = words.clone()
+    kern = replay_emit.replay_emit_chunk(words, freqs, chain, cps=cps, cps0=cps0)
+    twin = replay_emit.replay_emit_chunk_reference(words, freqs, chain, cps=cps, cps0=cps0)
+    torch.cuda.synchronize()
+    assert torch.equal(words, before)
+    assert torch.equal(kern[0], twin[0])
+    assert torch.equal(kern[4], twin[4])
+    for j, ok in enumerate(kern[4].tolist()):
+        if ok:
+            a = replay_emit.step_net_delta(*kern[1:4], j, cps=cps, cps0=cps0, vocab_cap=vocab_cap)
+            b = replay_emit.step_net_delta(*twin[1:4], j, cps=cps, cps0=cps0, vocab_cap=vocab_cap)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), j
+    return kern[4].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cps,cps0", [(64, 256), (8, 8)])
+def test_replay_kernel_matches_twin(cps, cps0):
+    """The first 16 merges of large.txt as the chain, with an inactive row
+    and a pair that no word holds, over each of 4 shards."""
+    _need_cuda()
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    base = Vocab.base(SPECIALS)
+    merges = hbm_driver.run_hbm_merge_loop(
+        table, base, vocab_cap=400, num_merges=16, min_frequency=1, device="cuda"
+    )
+    chain = torch.tensor(merges[:16], dtype=torch.int32, device="cuda")
+    chain[5, 0] = -1
+    chain[9, :2] = torch.tensor([300, 301])
+    words = torch.tensor(table.words, dtype=torch.int32, device="cuda")
+    freqs = torch.tensor(table.freqs, dtype=torch.int32, device="cuda")
+    before = replay_emit.LAUNCHES["replay_emit_chunk"]
+    flags = []
+    for shard in torch.arange(words.shape[0], device="cuda").chunk(4):
+        flags += _replay_vs_twin(
+            words[shard].contiguous(), freqs[shard].contiguous(), chain, cps, cps0, 400
+        )
+    assert replay_emit.LAUNCHES["replay_emit_chunk"] == before + 4
+    assert flags[5] == 1  # the inactive row
+
+
+@pytest.mark.cuda
+def test_replay_kernel_flags_overflow_as_the_twin_does():
+    """600 words hit by step 0 at 1024 slots: ok[0] == 0 on both, the
+    words applied all the same."""
+    _need_cuda()
+    words = torch.tensor([[1, 2, 3, -1]] * 600, dtype=torch.int32, device="cuda")
+    freqs = torch.ones(600, dtype=torch.int32, device="cuda")
+    chain = torch.tensor([[1, 2, 50], [50, 3, 51]], dtype=torch.int32, device="cuda")
+    assert _replay_vs_twin(words, freqs, chain, 8, 8, 64) == [0, 1]
+
+
+@pytest.mark.cuda
+def test_replay_kernel_matches_twin_random_tables():
+    """Tiny alphabets, words of the widest admitted length (64), a == b
+    runs; the chain merges the pairs the twin's own steps pick."""
+    _need_cuda()
+    for seed in range(4):
+        table = _random_table(seed)
+        words = torch.tensor(table.words, dtype=torch.int32, device="cuda")
+        freqs = torch.tensor(table.freqs, dtype=torch.int32, device="cuda")
+        merges = hbm_driver.run_hbm_merge_loop(
+            table, Vocab.base([]), vocab_cap=300, num_merges=12,
+            min_frequency=1, device="cuda",
+        )
+        chain = torch.tensor(merges[:12], dtype=torch.int32, device="cuda")
+        assert _replay_vs_twin(words, freqs, chain, 16, 32, 300) == [1] * 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards,cps", [(2, 64), (4, 8)])
+def test_sharded_loop_on_cuda_matches_k2(shards, cps):
+    """The data-sharded loop on the card gives K2's merges; at cps 8 its
+    overflow paths run too."""
+    _need_cuda()
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    base = Vocab.base(SPECIALS)
+    want = hbm_driver.run_hbm_merge_loop(
+        table, base, vocab_cap=700, num_merges=700 - len(base),
+        min_frequency=1, device="cuda",
+    )
+    before = replay_emit.LAUNCHES["replay_emit_chunk"]
+    stats: dict = {}
+    got = hbm_sharded.run_hbm_sharded_merge_loop(
+        table, base, vocab_cap=700, num_merges=700 - len(base),
+        min_frequency=1, data_shards=shards, cps=cps, device="cuda",
+        stats_out=stats,
+    )
+    assert np.array_equal(got, want)
+    assert replay_emit.LAUNCHES["replay_emit_chunk"] >= before + shards * stats["epochs"]
+    assert set(stats["phase_ms"]) == set(hbm_sharded.PHASES)
+
+
+@pytest.mark.cuda
+def test_sharded_epoch_never_waits_on_the_host():
+    """Select, replay and validate of an epoch under the sync debug mode
+    set to raise: nothing in them copies to the host."""
+    _need_cuda()
+    from yabpe_tpu_torch.dist.mesh import make_data_mesh
+    from yabpe_tpu_torch.train.state import VocabState
+
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    base = list(Vocab.base(SPECIALS).tokens())
+    v, k = 600, 8
+    mesh = make_data_mesh(2, "cuda")
+    tables = hbm_sharded._Tables(
+        hbm_driver.initial_corner_counts(table.words, table.freqs, len(base)), v, "cuda"
+    )
+    vocab = VocabState.initial(base, v, hbm_driver.byte_width(table.width, base), v - len(base), "cuda")
+    words = torch.tensor(table.words, dtype=torch.int32, device="cuda")
+    freqs = torch.tensor(table.freqs, dtype=torch.int32, device="cuda")
+    half = words.shape[0] // 2
+    shards = [(words[:half].contiguous(), freqs[:half].contiguous()),
+              (words[half:].contiguous(), freqs[half:].contiguous())]
+    inexact = torch.zeros((), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        A, B, C, okf = hbm_sharded._select_chain(
+            tables, vocab, 0, k=k, min_frequency=1, num_merges=v - len(base), inexact=inexact,
+        )
+        chain = torch.stack([torch.where(okf > 0, A, -1), B, C], dim=1).contiguous()
+        outs = [replay_emit.replay_emit_chunk(w, f, chain, cps=64, cps0=256) for w, f in shards]
+        p, cut = hbm_sharded._validate(
+            mesh, outs, A, B, okf, tables, vocab, 0, k=k, cps=64, cps0=256,
+            min_frequency=1, num_merges=v - len(base),
+        )
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(p) >= 1 and not bool(cut) and int(inexact) == 0

@@ -39,7 +39,8 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "import sys, yabpe_tpu_torch, yabpe_tpu_torch.train.hbm_driver, "
         "yabpe_tpu_torch.pretok.ingest, yabpe_tpu_torch.kernels._build, "
         "yabpe_tpu_torch.kernels.fused_loop, yabpe_tpu_torch.train.fused_driver, "
-        "yabpe_tpu_torch.tok, yabpe_tpu_torch.io.gpt2\n"
+        "yabpe_tpu_torch.tok, yabpe_tpu_torch.io.gpt2, "
+        "yabpe_tpu_torch.dist.hbm_sharded, yabpe_tpu_torch.kernels.replay_emit\n"
         "tok = yabpe_tpu_torch.BBPETokenizer("
         "{b'a': 0, b'b': 1, b' ': 2, b'ab': 3, b' ab': 4}, "
         "[(b'a', b'b'), (b' ', b'ab')], [])\n"
