@@ -15,12 +15,15 @@ package. Phases, none of whose failures is caught:
 3. K2 against its twin: one 2048-step chunk of the large-vocabulary
    kernel and of its plain twin from one state, on the 5 MB realistic
    fixture at vocab 4096; merges, words, counts and the vocab tensors
-   must be exactly equal and row_max at least each row's max;
+   must be exactly equal and row_max at least each row's max; prints the
+   kernel's us per step, the select's verify rounds and rows verified per
+   step, and its cluster size;
 4. K2 at full width: a 100 MB corpus from scripts/gen_corpus.py (lexicon
    200,000, seed 7) at vocab 32,000, the configuration of bench.py's
    bench_train_100m_hbm:
    a. K2 against its twin again, for the first chunk at these shapes,
-      timed by CUDA events, with the bytes the chunk needs at least;
+      timed by CUDA events, with the bytes the chunk needs at least, the
+      us per step and the verify rounds per step;
    b. the large-vocabulary main path: BBPETrainer(...).train(files) on
       the card, with K2's launch count zeroed before and read after;
    c. the same corpus through the native C++ host loop: the merges must
@@ -113,7 +116,8 @@ def timed_chunk(fn, state, **kw) -> float:
 
 def kernel_vs_twin(label, table, base, vocab_cap, min_frequency, card):
     """One chunk through the kernel and through the twin from one state;
-    returns (kernel ms, twin ms, bytes needed, max abs difference)."""
+    returns (kernel ms, twin ms, bytes needed, max abs difference, steps,
+    the select's verify rounds)."""
     import torch
 
     from yabpe_tpu_torch.kernels import hbm_loop
@@ -135,13 +139,18 @@ def kernel_vs_twin(label, table, base, vocab_cap, min_frequency, card):
     check(torch.equal(kern.scalars[:3], twin.scalars[:3]), f"{label}: scalars differ")
     check(bool((kern.row_max >= kern.counts.amax(dim=1)).all()), f"{label}: row_max below a row max")
     steps = int(kern.scalars[2])
+    rounds, verified = (int(x) for x in kern.stats[:2])
+    ctas = hbm_loop.cluster_ctas(vocab_cap, kern.token_bytes.shape[1])
     print(f"{label}: V={vocab_cap} N={table.words.shape[0]} W={table.words.shape[1]} "
           f"steps={steps} affected_words={tally.get('affected_words', 0)} "
-          f"kernel_chunk_ms={ms} twin_chunk_ms={plain_ms} needed_bytes={tally['bytes']} "
+          f"kernel_chunk_ms={ms} kernel_us_per_step={1e3 * ms / max(steps, 1)} "
+          f"verify_rounds_per_step={rounds / max(steps, 1)} "
+          f"verified_rows_per_step={verified / max(steps, 1)} cluster_ctas={ctas} "
+          f"twin_chunk_ms={plain_ms} needed_bytes={tally['bytes']} "
           f"max_abs_err={err} (tolerance: exact) [{card}]")
     del twin, kern
     torch.cuda.empty_cache()
-    return ms, plain_ms, tally["bytes"], err
+    return ms, plain_ms, tally["bytes"], err, steps, rounds
 
 
 def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
@@ -337,7 +346,7 @@ def main() -> int:
         full = WordTable.from_counter(count_pretokens([corpus], SPECIALS, **ingest))
         print(f"word table: {full.num_words} words, width {full.width}, "
               f"{time.perf_counter() - t0:.3f} s (host)")
-        ms, plain_ms, need, err = kernel_vs_twin(
+        ms, plain_ms, need, err, k2_steps, k2_rounds = kernel_vs_twin(
             "kernel_vs_twin_100M_v32000", full, base, 32000, 2, card
         )
 
@@ -384,8 +393,10 @@ def main() -> int:
         check(merges == load_model(tmp / "native_model")[1], "loaded merges differ")
 
     bound_ms = need / HBM_BYTES_PER_S * 1e3
-    print(f"hbm_merge_chunk first chunk at V=32000: kernel {ms} ms, twin {plain_ms} ms, "
-          f"bound {bound_ms} ms by bytes [{card}]")
+    print(f"hbm_merge_chunk first chunk at V=32000: kernel {ms} ms "
+          f"({1e3 * ms / k2_steps} us/step, {k2_rounds / k2_steps} verify rounds/step), "
+          f"twin {plain_ms} ms, bound {bound_ms} ms by bytes "
+          f"({1e3 * bound_ms / k2_steps} us/step) [{card}]")
 
     # ---- 5. K1 against its twin, chunk by chunk
     large = WordTable.from_counter(count_pretokens([REPO / "tests" / "data" / "large.txt"], SPECIALS))

@@ -5,16 +5,28 @@ by kernel, for the PyTorch/CUDA port (src/yabpe_tpu_torch).
     python3 profile_torch.py [--size-mb 100] [--vocab 32000] [--seed 7]
 
 Builds the corpus of chip_smoke.py's full-width phase (scripts/gen_corpus.py,
-lexicon 200,000), ingests it, and runs the merge loop chunk by chunk on
-the card through the kernel wrapper, printing for every chunk its time by
-CUDA events. After each chunk the plain twin runs the same chunk on its
-own copy of the state (untimed): the two states must stay exactly equal
-over the whole run, and the twin's byte tally gives each chunk's bound
-(the bytes the chunk needs at least over the H100's 3.35 TB/s). Two
-chunks, the first and the last, also run under torch.profiler: their
-device time per kernel, the kernels' launch counts and the device's busy
-share of the chunk's wall time. Needs one CUDA device; imports nothing of
-JAX or of the JAX package.
+lexicon 200,000) and ingests it as the trainer does (count_pretokens_raw).
+Then two runs of the K2 merge loop:
+
+1. host set-up: the trainer's large-vocabulary route step by step
+   (counter_from_raw, WordTable.from_counter, the K1 admission test,
+   hbm_driver.admit, state_from_numpy, the chunks through run_chunks,
+   merges_to_bytes), each timed by the host clock, the device synced
+   after each, so their sum is what ``merge_seconds`` holds;
+2. chunk by chunk on the card through the kernel wrapper, printing for
+   every chunk its time by CUDA events, the select's verify rounds and
+   verified rows per step, and the step kernel's time by phase from its
+   own global-timer stamps (``HbmState.stats``; the rest of the step is
+   the apply kernel and the gaps). After each chunk the
+   plain twin runs the same chunk on its own copy of the state (untimed):
+   the two states must stay exactly equal over the whole run, and the
+   twin's byte tally gives each chunk's bound (the bytes the chunk needs
+   at least over the H100's 3.35 TB/s). Two chunks, the first and the
+   last, also run under torch.profiler: their device time per kernel,
+   the kernels' launch counts and the device's busy share of the
+   chunk's wall time.
+
+Needs one CUDA device; imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +42,16 @@ REPO = Path(__file__).resolve().parent
 SPECIALS = ["<|endoftext|>"]
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the bound.
 HBM_BYTES_PER_S = 3.35e12
+
+
+def union_us(spans: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) spans."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
 
 
 def main() -> int:
@@ -48,13 +70,23 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "src"))
     sys.path.insert(0, str(REPO / "scripts"))
     from gen_corpus import generate
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from yabpe_tpu_torch.core.vocab import Vocab
     from yabpe_tpu_torch.core.wordtable import WordTable
     from yabpe_tpu_torch.kernels import hbm_loop
-    from yabpe_tpu_torch.pretok.ingest import count_pretokens
-    from yabpe_tpu_torch.train.hbm_driver import state_from_numpy
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens_raw, counter_from_raw
+    from yabpe_tpu_torch.train import hbm_driver
+    from yabpe_tpu_torch.train.fused_driver import fused_applicable
+    from yabpe_tpu_torch.train.state import merges_to_bytes
+
+    STATS = {
+        "rounds": hbm_loop.STAT_ROUNDS, "verified": hbm_loop.STAT_VERIFIED,
+        "bound": hbm_loop.STAT_NS_BOUND, "verify": hbm_loop.STAT_NS_VERIFY,
+        "compare": hbm_loop.STAT_NS_COMPARE, "vocab": hbm_loop.STAT_NS_VOCAB,
+        "step": hbm_loop.STAT_NS_STEP, "barrier": hbm_loop.STAT_NS_BARRIER,
+    }
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -64,13 +96,46 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="yabpe_profile_") as tmp:
         corpus = Path(tmp) / "corpus.txt"
         generate(str(corpus), args.size_mb, lexicon_size=args.lexicon, seed=args.seed)
-        table = WordTable.from_counter(count_pretokens(
+        raw = count_pretokens_raw(
             [corpus], SPECIALS, chunk_size_bytes=32 << 20, max_workers=8,
             align_to_newline=True,
-        ))
-    base = list(Vocab.base(SPECIALS).tokens())
+        )
+    base_vocab = Vocab.base(SPECIALS)
+    base = list(base_vocab.tokens())
     num = args.vocab - len(base)
-    state = state_from_numpy(table.words, table.freqs, base, args.vocab, "cuda", num_merges=num)
+
+    # ---- 1. host set-up inside merge_seconds, as the trainer's K2 route runs it
+    torch.ones(1, device="cuda").add_(1)  # CUDA context outside the timings
+    torch.cuda.synchronize()
+    hbm_loop._library()  # and the kernel's build
+    split: dict[str, float] = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t0
+        return out
+
+    counter = timed("counter_from_raw", counter_from_raw, *raw)
+    table = timed("WordTable.from_counter", WordTable.from_counter, counter)
+    timed("fused_applicable", fused_applicable, int(table.words.shape[0]),
+          int(table.words.shape[1]), args.vocab, max(table.width, 2))
+    token_width = hbm_driver.byte_width(table.width, base)
+    timed("admit", hbm_driver.admit, table, args.vocab, num, token_width, torch.device("cuda"))
+    state = timed("state_from_numpy", hbm_driver.state_from_numpy, table.words, table.freqs,
+                  base, args.vocab, "cuda", num_merges=num)
+    ids = timed("chunks (run_chunks)", hbm_driver.run_chunks, hbm_loop.hbm_merge_chunk, state,
+                num_merges=num, min_frequency=2, chunk_size=args.chunk)
+    timed("merges_to_bytes", merges_to_bytes, ids, base_vocab)
+    total_s = sum(split.values())
+    print("host set-up split of the K2 route's merge_seconds: " + ", ".join(
+        f"{name} {sec} s" for name, sec in split.items()) + f"; sum {total_s} s [{card}]")
+    del state, counter
+
+    state = hbm_driver.state_from_numpy(
+        table.words, table.freqs, base, args.vocab, "cuda", num_merges=num
+    )
     twin = state.clone()
     print(f"V={args.vocab} N={table.words.shape[0]} W={table.width} merges={num} [{card}]")
     with profile(activities=[ProfilerActivity.CUDA]):  # start the tracer once
@@ -82,6 +147,7 @@ def main() -> int:
     for start in starts:
         kw = dict(chunk_start=start, chunk_size=args.chunk, num_merges=num, min_frequency=2)
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        stats0 = state.stats.clone()
         torch.cuda.synchronize()
         if start in profiled:
             wall0 = time.perf_counter()
@@ -97,6 +163,7 @@ def main() -> int:
             ev1.record()
             torch.cuda.synchronize()
         ms = ev0.elapsed_time(ev1)
+        stat = [(int(x) % 2**32) for x in (state.stats.long() - stats0.long())]
         tally: dict[str, int] = {}
         hbm_loop.hbm_merge_chunk_reference(twin, tally=tally, **kw)
         for name in ("words", "counts", "token_bytes", "token_len", "lex_rank", "merges"):
@@ -109,26 +176,39 @@ def main() -> int:
         bound_ms = tally.get("bytes", 0) / HBM_BYTES_PER_S * 1e3
         total_ms += ms
         total_bound_ms += bound_ms
-        steps = min(start + args.chunk, num) - start
+        steps = int(state.scalars[hbm_loop.NUM_DONE]) - start
+        per_step = {name: stat[i] / max(steps, 1) for name, i in STATS.items()}
         print(f"chunk {start}: {ms} ms, {ms * 1e3 / steps} us/step, bound {bound_ms} ms "
-              f"by bytes, {tally.get('affected_words', 0)} affected words [{card}]")
+              f"by bytes, {tally.get('affected_words', 0)} affected words, "
+              f"{per_step['rounds']} verify rounds/step, {per_step['verified']} verified "
+              f"rows/step; step kernel {per_step['step'] / 1e3} us/step by its own timer "
+              f"(bound {per_step['bound'] / 1e3}, verify {per_step['verify'] / 1e3}, "
+              f"compare {per_step['compare'] / 1e3}, vocab {per_step['vocab'] / 1e3} us; "
+              f"the first cluster barrier {per_step['barrier'] / 1e3} us), "
+              f"apply and gaps {ms * 1e3 / steps - per_step['step'] / 1e3} us/step [{card}]")
         if start in profiled:
-            device_us = 0.0
             rows = []
+            spans = []
             for e in prof.key_averages():
                 dev = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
                 if dev and e.key.find("kernel") >= 0:
                     rows.append((dev, e.count, e.key))
-                    device_us += dev
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA and e.name.find("kernel") >= 0:
+                    spans.append((e.time_range.start, e.time_range.end))
             for dev, count, key in sorted(rows, reverse=True):
                 print(f"  {key[:60]}: {dev / 1e3} ms device, {count} launches, "
-                      f"{dev / count} us each")
-            print(f"  device busy {device_us / 1e3} ms of {wall_ms} ms wall "
-                  f"({100 * device_us / 1e3 / wall_ms} %) under the profiler [{card}]")
+                      f"{dev / count} us each (spans overlap under PDL)")
+            busy_us = union_us(spans)
+            print(f"  device busy {busy_us / 1e3} ms of {wall_ms} ms wall "
+                  f"({100 * busy_us / 1e3 / wall_ms} %), the union of the kernels' spans, "
+                  f"under the profiler [{card}]")
         if int(state.scalars[hbm_loop.STOPPED]):
             break
-    print(f"all chunks: {total_ms} ms for {int(state.scalars[hbm_loop.NUM_DONE])} merges, "
-          f"bound {total_bound_ms} ms by bytes; kernel == twin after every chunk [{card}]")
+    done = int(state.scalars[hbm_loop.NUM_DONE])
+    print(f"all chunks: {total_ms} ms for {done} merges, bound {total_bound_ms} ms by bytes, "
+          f"{int(state.stats[hbm_loop.STAT_ROUNDS]) / max(done, 1)} verify rounds/step; "
+          f"kernel == twin after every chunk [{card}]")
     return 0
 
 

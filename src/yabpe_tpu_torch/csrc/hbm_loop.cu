@@ -10,8 +10,10 @@
 //   token_bytes [V, L] int32   token byte strings, -1 padded
 //   token_len   [V], lex_rank [V] int32 (dense lex rank, -1 = inactive)
 //   merges      [M, 3] int32   (a, b, c) per step, -1 where not taken
-//   scalars     [8]    int32   next_id, stopped, num_done, then per-step
-//                              temporaries (see the enum below)
+//   scalars     [8]    int32   next_id, stopped, num_done, then this
+//                              step's (a, b, c) for the apply kernel
+//   stats       [8]    int32   verify rounds, rows verified, and the step
+//                              kernel's time by phase (enum Stat)
 // Each step is the JAX kernel's chain: select the pair with the highest
 // count (ties to the lexicographically greatest (left, right) byte
 // strings), grow the vocab (merged bytes, dedup against live tokens,
@@ -20,40 +22,89 @@
 // count below min_frequency sets `stopped`, and every later kernel returns
 // at once.
 //
-// What bounds it on this card. Per step: (1) the word scan reads the whole
-// word table (N*W*4 bytes, ~22 MB for a 100 MB corpus, inside the 50 MB
-// L2) to find the few words that hold the pair; (2) the select kernel
-// reads row_max and lex_rank (8V bytes) and one exact count row (4V bytes)
-// for each verify, in ONE block; (3) five dependent launches, each a few
-// microseconds of launch latency, where the useful work of a late step is
-// a few hundred cells. On an H100 at the 100 MB / vocab 32,000 shapes, (2)
-// takes most of a step (PERF.md, profile_torch.py).
+// Launch shape. Two launches per step, chained by programmatic dependent
+// launch (PDL: each kernel lets the next one launch at its start, and
+// waits on griddepcontrol.wait before it reads any state), so the launch
+// of one hides behind the other's run:
+//   1. step_kernel, ONE thread-block cluster of 16 CTAs of 256 threads
+//      on neighbouring SMs (8 CTAs where 16 do not fit, as
+//      cudaOccupancyMaxActiveClusters says; a cluster that fits nowhere
+//      raises): the lazy select, the dedup compare and lex rank, and the
+//      vocab update, as phases separated by cluster barriers. The CTAs
+//      trade keys and counts through distributed shared memory, never
+//      through a grid barrier or global atomics. 256 threads, not 1024:
+//      the phases are chains of block reductions and barriers, and with
+//      1024 threads the whole run's chunks took 1.45x as long (PERF.md);
+//   2. apply_kernel, a grid over the words (merge_apply.cuh).
+// The first CUDA version made five launches per step and selected in
+// ONE block: on an H100 at 100 MB / vocab 32,000 its select took 31.5 us
+// of a 49.6 us step late in the run (42.4 us early), at 2.1 verify rounds
+// per step, each round 256 KB of row_max/lex_rank and 256 KB of one count
+// row and lex_rank read by one SM (PERF.md).
 //
-// What the design does about it. The [V, V] table is never scanned: the
-// lazy row-max bound (the scheme of hbm_loop.py:518-565) confines
-// selection to O(V) reads plus the verified rows, and every positive
-// delta raises its row's bound with atomicMax, so no exact refresh is
-// needed. Deltas are folded straight into the table with int32 atomics
-// (no pending-column buffer, no eviction: Hopper has them, the TPU did
-// not), and only the changed window of each affected word is emitted.
-// The host loop lives inside this library, so Python makes one call per
-// chunk and syncs once per chunk. Left for later work: an inverted index
-// in place of the word scan, a multi-block select, warp-aggregated
-// atomics for the hot cells of the first merges, and a CUDA graph or a
-// persistent kernel over the step chain.
+// The select. CTA r owns a stripe of the live rows [0, next_id) (a
+// multiple of 4 rows, read with 16-byte loads). A round:
+//   - bound pass: each CTA finds the top two bound keys of its stripe,
+//     key = pack(row_max, lex_rank, row), and keeps the stripe's keys in
+//     shared memory for the step's later rounds;
+//   - verify: each CTA whose stripe top beats the best exact key found so
+//     far reads that count row over the live columns [0, next_id) in
+//     16-byte loads and takes its max count (a block max); then lex_rank
+//     is read only at the columns that hold the max, never in full, and a
+//     second block max gives the column. Up to 16 rows are verified per
+//     round, one per SM, in parallel;
+//   - acceptance: the best verified exact key E = pack(exact max,
+//     lex_rank, row) is taken when E >= every bound key of a row not
+//     verified in the round (the second key of a verified stripe, the top
+//     key of any other stripe); else another round runs.
+// Exactness rule. row_max[r] >= max(counts[r]) holds for every row after
+// every step: bounds only go up (atomicMax in the apply's TableSink), and
+// a verified row's bound is tightened to its exact max. So an E that
+// beats every unverified bound beats every row's exact key, and the row
+// it names is the twin's: the highest count, ties to the greatest lex
+// rank; its column is the greatest lex rank among the columns equal to
+// that count. Ids travel in the key's low 16 bits, so V <= 0xFFFF.
+// kernels/hbm_loop.py::cluster_select_reference is this round structure
+// in torch, and yabpe_hbm_select runs this kernel's select alone, so the
+// rounds and the tightened row_max are held to it.
 //
-// Exactness. The apply step (merge_apply.cuh, shared with fused_loop.cu
-// and replay_emit.cu), with its table sink, keeps counts exact while the
-// table's total pair mass stays below 2^31, which hbm_driver.py checks.
+// What bounds it now (H100, 100 MB / vocab 32,000; PERF.md,
+// scripts/k2_variants.py). The 16 chunks take about 733 ms against 1,678
+// ms before, 22-26 us a step against 49-64 us. The step kernel, 11 us of
+// a step early in the run and 19 us late, is a chain of dependent
+// latencies, not bytes: per round the stripe's bounds or the verified
+// count row (32 KB per load batch of a CTA, so four batches for a row of
+// 32,000 live columns), two block reductions and a cluster barrier (~0.7
+// us), 1.35-1.4 rounds a step; then rows a and b and the stripe's tokens
+// for the compare, a barrier, and the vocab update. The apply
+// kernel and the hand-offs take the other ~7 us: it scans the whole word
+// table (N*W*4 bytes, ~25 MB, inside the 50 MB L2) every step to find the
+// few words that hold the pair. PDL saves about 1.8 us a step over plain
+// stream order. Left for later: an inverted index (pair -> words) in
+// place of that scan, shared with replay_emit.cu through merge_apply.cuh,
+// and warp-aggregated atomics for the hot cells of the first merges.
+//
+// Exactness of the table. The apply step (merge_apply.cuh, shared with
+// fused_loop.cu and replay_emit.cu), with its table sink, keeps counts
+// exact while the table's total pair mass stays below 2^31, which
+// hbm_driver.py checks.
+//
+// Build. nvcc -gencode arch=compute_90a,code=sm_90a (kernels/_build.py):
+// clusters, distributed shared memory and griddepcontrol need no other
+// flag and no relocatable device code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "merge_apply.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using yabpe::kMaxWidth;
+using u64 = unsigned long long;
 
 enum Scalar : int {
   kNextId = 0,   // first free token id
@@ -61,192 +112,609 @@ enum Scalar : int {
   kNumDone = 2,  // merge steps taken
   kSelA = 3,     // this step's left id
   kSelB = 4,     // this step's right id
-  kSelCnt = 5,   // this step's pair count
-  kEqId = 6,     // id of a live token equal to the merged bytes, or -1
-  kNLess = 7,    // live tokens below the merged bytes (its lex rank)
+  kSelC = 5,     // this step's merged id (new, or the live duplicate)
 };
 
-constexpr int kSelectThreads = 1024;
-constexpr int kThreads = 256;
+// HbmState.stats: counters, and nanoseconds by %globaltimer that CTA 0
+// spends in each phase of the step kernel (after its wait on the previous
+// kernel), each phase up to and including its cluster barrier.
+enum Stat : int {
+  kRounds = 0,     // verify rounds
+  kVerified = 1,   // rows verified
+  kNsBound = 2,    // bound passes
+  kNsVerify = 3,   // verifies and acceptance
+  kNsCompare = 4,  // merged bytes, dedup compare and lex rank
+  kNsVocab = 5,    // vocab update and the record, to the last barrier
+  kNsStep = 6,     // the whole step kernel
+  kNsBarrier = 7,  // the first round's first cluster barrier alone
+};
+
+// yabpe_hbm_select's output.
+enum Out : int {
+  kOutA = 0, kOutB, kOutCount, kOutRounds, kOutVerified, kOutCtas, kNumOut
+};
+
+constexpr int kStepThreads = 256;
+constexpr int kApplyThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // (count, lex rank, id) as one key: a larger count wins, then a greater
 // lex rank. Counts are >= 0; an inactive slot (lex -1) ranks lowest.
-__device__ __forceinline__ unsigned long long pack_key(int count, int lex,
-                                                       int idx) {
-  return (static_cast<unsigned long long>(static_cast<unsigned>(count)) << 32) |
-         (static_cast<unsigned long long>((lex + 1) & 0xFFFF) << 16) |
-         static_cast<unsigned long long>(idx & 0xFFFF);
+__device__ __forceinline__ u64 pack_key(int count, int lex, int idx) {
+  return (static_cast<u64>(static_cast<unsigned>(count)) << 32) |
+         (static_cast<u64>((lex + 1) & 0xFFFF) << 16) |
+         static_cast<u64>(idx & 0xFFFF);
 }
 
-__device__ __forceinline__ unsigned long long max_u64(unsigned long long x,
-                                                      unsigned long long y) {
-  return x > y ? x : y;
+__device__ __forceinline__ int key_count(u64 k) {
+  return static_cast<int>(k >> 32);
 }
 
-// Max over the block; every thread gets the result. `red` holds 33 slots.
-__device__ unsigned long long block_max(unsigned long long v,
-                                        unsigned long long* red) {
+__device__ __forceinline__ int key_id(u64 k) {
+  return static_cast<int>(k & 0xFFFF);
+}
+
+// Rows a CTA owns: a multiple of 4, so every stripe starts 16-byte aligned.
+__host__ __device__ __forceinline__ int stripe_rows(int n, int ctas) {
+  return (((n + ctas - 1) / ctas) + 3) & ~3;
+}
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// The two halves of the kernel's last cluster barrier: no CTA leaves
+// while another may still read its shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ u64 max_u64(u64 x, u64 y) { return x > y ? x : y; }
+
+__device__ __forceinline__ u64 warp_max(u64 v) {
   for (int o = 16; o > 0; o >>= 1)
-    v = max_u64(v, __shfl_down_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+    v = max_u64(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// Inserts k into the top two (t1 > t2; 0 = empty). Keys are distinct.
+__device__ __forceinline__ void top2_add(u64& t1, u64& t2, u64 k) {
+  if (k > t1) {
+    t2 = t1;
+    t1 = k;
+  } else if (k > t2) {
+    t2 = k;
+  }
+}
+
+__device__ __forceinline__ void top2_merge(u64& t1, u64& t2, u64 o1, u64 o2) {
+  if (o1 > t1) {
+    t2 = max_u64(t1, o2);
+    t1 = o1;
+  } else {
+    t2 = max_u64(t2, o1);
+  }
+}
+
+__device__ __forceinline__ void warp_top2(u64& t1, u64& t2) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const u64 o1 = __shfl_xor_sync(kFullMask, t1, o);
+    const u64 o2 = __shfl_xor_sync(kFullMask, t2, o);
+    top2_merge(t1, t2, o1, o2);
+  }
+}
+
+// Top two keys over the block; every thread gets them. `red` holds 66.
+__device__ void block_top2(u64& t1, u64& t2, u64* red) {
+  warp_top2(t1, t2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[2 * warp] = t1;
+    red[2 * warp + 1] = t2;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool in = lane < static_cast<int>(blockDim.x >> 5);
+    t1 = in ? red[2 * lane] : 0ull;
+    t2 = in ? red[2 * lane + 1] : 0ull;
+    warp_top2(t1, t2);
+    if (lane == 0) {
+      red[64] = t1;
+      red[65] = t2;
+    }
+  }
+  __syncthreads();
+  t1 = red[64];
+  t2 = red[65];
+  __syncthreads();  // red is reused by the next call
+}
+
+// Max over the block; every thread gets the result. `red` holds 33 or more.
+__device__ u64 block_max(u64 v, u64* red) {
+  v = warp_max(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? red[lane] : 0ull;
-    for (int o = 16; o > 0; o >>= 1)
-      v = max_u64(v, __shfl_down_sync(0xffffffffu, v, o));
+    v = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0ull;
+    v = warp_max(v);
     if (lane == 0) red[32] = v;
   }
   __syncthreads();
   v = red[32];
-  __syncthreads();  // red is reused by the next call
+  __syncthreads();
   return v;
 }
 
-// One block. Lazy select: take the row whose bound is the global max (lex
-// tie-break), read it exactly, and accept it when its exact max equals
-// the bound; else tighten the bound and retry.
-__global__ void select_kernel(const int* __restrict__ counts,
-                              int* __restrict__ row_max,
-                              const int* __restrict__ lex_rank,
-                              int* __restrict__ scalars, int V,
-                              int min_frequency) {
-  __shared__ unsigned long long red[33];
-  if (scalars[kStopped]) return;
-  int a = 0, b = 0, best = 0;
-  for (;;) {
-    unsigned long long k = 0;
-    for (int r = threadIdx.x; r < V; r += blockDim.x)
-      k = max_u64(k, pack_key(row_max[r], lex_rank[r], r));
-    k = block_max(k, red);
-    const int m = static_cast<int>(k >> 32);
-    a = static_cast<int>(k & 0xFFFF);
-    if (m <= 0) {
-      best = 0;
-      break;
+// Calls f(c, counts of column c) for this thread's share of the live
+// columns [0, n) of a count row: the columns before the row's first
+// 16-byte boundary, then int4 loads in batches of kBatch per thread, all
+// of a batch issued before any is used (at 256 threads one batch covers
+// 32 KB of the row), then the tail.
+constexpr int kBatch = 8;
+
+template <class F>
+__device__ __forceinline__ void for_my_columns(const int* row, int n, F&& f) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int head = min(
+      static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) >> 2),
+      n);
+  if (tid < head) f(tid, row[tid]);
+  const int4* p = reinterpret_cast<const int4*>(row + head);
+  const int n4 = (n - head) >> 2;
+  for (int base = tid; base < n4; base += kBatch * T) {
+    int4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = base + u * T;
+      v[u] = j < n4 ? p[j] : make_int4(0, 0, 0, 0);
     }
-    const int* row = counts + static_cast<size_t>(a) * V;
-    unsigned long long k2 = 0;
-    for (int col = threadIdx.x; col < V; col += blockDim.x)
-      k2 = max_u64(k2, pack_key(row[col], lex_rank[col], col));
-    k2 = block_max(k2, red);
-    const int tm = static_cast<int>(k2 >> 32);
-    if (threadIdx.x == 0) row_max[a] = tm;
-    __syncthreads();
-    if (tm == m) {
-      best = tm;
-      b = static_cast<int>(k2 & 0xFFFF);
-      break;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int j = base + u * T;
+      if (j < n4) {
+        const int c = head + 4 * j;
+        f(c, v[u].x);
+        f(c + 1, v[u].y);
+        f(c + 2, v[u].z);
+        f(c + 3, v[u].w);
+      }
     }
   }
-  if (threadIdx.x == 0) {
-    if (best < max(min_frequency, 1)) {
-      scalars[kStopped] = 1;
+  for (int c = head + 4 * n4 + tid; c < n; c += T) f(c, row[c]);
+}
+
+// The exact key of count row `row` over its live columns [0, n): pack(max
+// count, greatest lex rank among the columns equal to it, that column);
+// 0 for a row without a count. Two passes: the max, with no lex_rank
+// read, then lex_rank only at the columns that hold it (one load where a
+// thread saw the max once, a re-read of its columns, from L1, on a tie).
+__device__ u64 verify_row(const int* row, const int* lex_rank, int n,
+                          u64* red) {
+  int m = -1, col = 0, ties = 0;
+  for_my_columns(row, n, [&](int c, int v) {
+    if (v > m) {
+      m = v;
+      col = c;
+      ties = 1;
+    } else if (v == m) {
+      ++ties;
+    }
+  });
+  const int best =
+      key_count(block_max(m > 0 ? pack_key(m, -1, 0) : 0ull, red));
+  if (best <= 0) return 0ull;
+  int l = -1;
+  if (m == best) {
+    if (ties == 1) {
+      l = lex_rank[col];
     } else {
-      scalars[kSelA] = a;
-      scalars[kSelB] = b;
-      scalars[kSelCnt] = best;
-      scalars[kEqId] = -1;
-      scalars[kNLess] = 0;
+      for_my_columns(row, n, [&](int c, int v) {
+        if (v == best) {
+          const int x = lex_rank[c];
+          if (x > l) {
+            l = x;
+            col = c;
+          }
+        }
+      });
     }
   }
+  return block_max(l < 0 ? 0ull : pack_key(best, l, col), red);
 }
 
-__device__ __forceinline__ int merged_byte(const int* __restrict__ tb, int L,
-                                           int a, int b, int la, int lb,
-                                           int d) {
-  if (d < la) return tb[static_cast<size_t>(a) * L + d];
-  if (d < la + lb) return tb[static_cast<size_t>(b) * L + (d - la)];
-  return -1;
-}
-
-// Grid over token ids: compare every live token with the merged bytes.
-// Finds the equal token (dedup) and counts the tokens below (lex rank).
-__global__ void compare_kernel(const int* __restrict__ token_bytes,
-                               const int* __restrict__ token_len,
-                               int* __restrict__ scalars, int L) {
-  extern __shared__ int merged[];
-  if (scalars[kStopped]) return;
-  const int a = scalars[kSelA], b = scalars[kSelB];
-  const int next_id = scalars[kNextId];
-  const int la = token_len[a], lb = token_len[b];
-  for (int d = threadIdx.x; d < L; d += blockDim.x)
-    merged[d] = merged_byte(token_bytes, L, a, b, la, lb, d);
-  __syncthreads();
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  int less = 0;
-  if (t < next_id) {
-    const int* row = token_bytes + static_cast<size_t>(t) * L;
-    int d = 0;
-    while (d < L && row[d] == merged[d]) ++d;
-    if (d == L)
-      atomicMax(&scalars[kEqId], t);  // token strings are unique
-    else
-      less = row[d] < merged[d];
+// Lexicographic order of a token row (int4s, its first one `v` already
+// loaded) against the merged bytes: -1 below, 0 equal, 1 above. Rows are
+// -1 padded, so a prefix sorts first.
+__device__ __forceinline__ int compare_token(const int4* row, int4 v,
+                                             const int* merged, int L) {
+  for (int d = 0;;) {
+    const int x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (x[k] != merged[d + k]) return x[k] < merged[d + k] ? -1 : 1;
+    d += 4;
+    if (d >= L) return 0;
+    v = row[d >> 2];
   }
-  const int n = __syncthreads_count(less);
-  if (threadIdx.x == 0 && n) atomicAdd(&scalars[kNLess], n);
 }
 
-// Grid over token ids: record (a, b, c) and, for a new token, insert it
-// (bytes, length, lex rank) and bump the ranks above it.
-__global__ void vocab_kernel(int* __restrict__ token_bytes,
-                             int* __restrict__ token_len,
-                             int* __restrict__ lex_rank,
-                             int* __restrict__ merges,
-                             const int* __restrict__ scalars, int V, int L,
-                             int step) {
+// One merge step but its apply, in one cluster (the note at the top).
+// With `out` set it runs the select alone and writes kNumOut ints there,
+// (a, b, count, rounds, rows verified, CTAs) with a = b = -1 and count 0
+// for a stop, and leaves scalars, stats and the vocab as they are.
+__global__ void __launch_bounds__(kStepThreads, 1)
+    step_kernel(const int* counts, int* row_max, int* lex_rank,
+                int* token_bytes, int* token_len, int* merges, int* scalars,
+                int* stats, int* out, int V, int L, int step,
+                int min_frequency) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ u64 red[66];
+  __shared__ u64 pub_top1, pub_top2, pub_exact;
+  __shared__ int pub_col, pub_nless, pub_eq, s_nless, s_eq;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
+  u64* keys = reinterpret_cast<u64*>(smem);  // this stripe's bound keys
+  int* merged = reinterpret_cast<int*>(
+      smem + sizeof(u64) * static_cast<size_t>(stripe_rows(V, ctas)));
+
+  wait_prior_grid();
+  launch_next_grid();
+  // Every CTA reads the same flag: they all leave here, or none does.
   if (scalars[kStopped]) return;
-  const int a = scalars[kSelA], b = scalars[kSelB];
-  const int next_id = scalars[kNextId], eq = scalars[kEqId];
-  const int ins = scalars[kNLess];
+  const int n = scalars[kNextId];
+  const int sz = stripe_rows(n, ctas);
+  const int lo = min(rank * sz, n), hi = min(lo + sz, n), len = hi - lo;
+  const int thr = max(min_frequency, 1);
+  const long long t_step = global_ns();
+  long long t_phase = t_step, ns_bound = 0, ns_verify = 0, ns_barrier = 0;
+
+  // Every thread of the cluster takes the same decisions from the same
+  // data, so control flow, and every cluster barrier, is uniform.
+  u64 best = 0;  // the best exact key verified so far
+  int best_col = 0, rounds = 0, verified = 0;
+  bool stop = false;
+  for (;;) {
+    ++rounds;
+    // Bound pass: the top two keys of this stripe.
+    u64 t1 = 0, t2 = 0;
+    if (rounds == 1) {
+      const int4* rm = reinterpret_cast<const int4*>(row_max + lo);
+      const int4* lx = reinterpret_cast<const int4*>(lex_rank + lo);
+      const int n4 = len >> 2;
+      for (int j = tid; j < n4; j += T) {
+        const int4 m = rm[j], l = lx[j];
+        const int r = lo + 4 * j;
+        const u64 k0 = pack_key(m.x, l.x, r), k1 = pack_key(m.y, l.y, r + 1);
+        const u64 k2 = pack_key(m.z, l.z, r + 2), k3 = pack_key(m.w, l.w, r + 3);
+        keys[4 * j] = k0;
+        keys[4 * j + 1] = k1;
+        keys[4 * j + 2] = k2;
+        keys[4 * j + 3] = k3;
+        top2_add(t1, t2, k0);
+        top2_add(t1, t2, k1);
+        top2_add(t1, t2, k2);
+        top2_add(t1, t2, k3);
+      }
+      for (int i = 4 * n4 + tid; i < len; i += T) {
+        const u64 k = pack_key(row_max[lo + i], lex_rank[lo + i], lo + i);
+        keys[i] = k;
+        top2_add(t1, t2, k);
+      }
+    } else {
+      for (int i = tid; i < len; i += T) top2_add(t1, t2, keys[i]);
+    }
+    block_top2(t1, t2, red);
+    if (tid == 0) {
+      pub_top1 = t1;
+      pub_top2 = t2;
+    }
+    const long long t_sync = global_ns();
+    cluster.sync();
+    if (rounds == 1) ns_barrier = global_ns() - t_sync;
+    // Lane c of every warp holds CTA c's top two.
+    u64 k1 = 0, k2 = 0;
+    if (lane < ctas) {
+      k1 = *cluster.map_shared_rank(&pub_top1, lane);
+      k2 = *cluster.map_shared_rank(&pub_top2, lane);
+    }
+    ns_bound += global_ns() - t_phase;
+    t_phase = global_ns();
+    if (key_count(warp_max(k1)) < thr) {  // no bound reaches min_frequency
+      stop = true;
+      break;
+    }
+    const bool cand = k1 > best && key_count(k1) > 0;
+    verified += __popc(__ballot_sync(kFullMask, cand));
+    const u64 mine = __shfl_sync(kFullMask, k1, rank);
+    if (mine > best && key_count(mine) > 0) {
+      const int r = key_id(mine);
+      const u64 e = verify_row(counts + static_cast<size_t>(r) * V, lex_rank,
+                               n, red);
+      if (tid == 0) {
+        const u64 exact =
+            (static_cast<u64>(static_cast<unsigned>(key_count(e))) << 32) |
+            (mine & 0xFFFFFFFFull);
+        row_max[r] = key_count(e);
+        keys[r - lo] = exact;
+        pub_exact = exact;
+        pub_col = key_id(e);
+      }
+    } else if (tid == 0) {
+      pub_exact = 0;
+    }
+    cluster.sync();
+    u64 e = 0;
+    int col = 0;
+    if (cand) {
+      e = *cluster.map_shared_rank(&pub_exact, lane);
+      col = *cluster.map_shared_rank(&pub_col, lane);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const u64 oe = __shfl_xor_sync(kFullMask, e, o);
+      const int oc = __shfl_xor_sync(kFullMask, col, o);
+      if (oe > e) {
+        e = oe;
+        col = oc;
+      }
+    }
+    if (e > best) {
+      best = e;
+      best_col = col;
+    }
+    ns_verify += global_ns() - t_phase;
+    t_phase = global_ns();
+    // Accept when best beats the largest bound key of the rows not
+    // verified this round.
+    if (best >= warp_max(cand ? k2 : k1)) break;
+  }
+  if (!stop && key_count(best) < thr) stop = true;
+  const int a = key_id(best), b = best_col;
+
+  if (out != nullptr || stop) {
+    if (rank == 0 && tid == 0) {
+      if (out != nullptr) {
+        out[kOutA] = stop ? -1 : a;
+        out[kOutB] = stop ? -1 : b;
+        out[kOutCount] = stop ? 0 : key_count(best);
+        out[kOutRounds] = rounds;
+        out[kOutVerified] = verified;
+        out[kOutCtas] = ctas;
+      } else {
+        scalars[kStopped] = 1;
+        stats[kRounds] += rounds;
+        stats[kVerified] += verified;
+        stats[kNsBound] += static_cast<int>(ns_bound);
+        stats[kNsVerify] += static_cast<int>(ns_verify);
+        stats[kNsBarrier] += static_cast<int>(ns_barrier);
+        stats[kNsStep] += static_cast<int>(global_ns() - t_step);
+      }
+    }
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+
+  // Dedup and lex rank: this stripe's live tokens against the merged
+  // bytes, built from rows a and b and their lengths, all loaded at once
+  // (L is a multiple of 4, so a token row is whole int4s).
+  t_phase = global_ns();
+  int* row_a = merged + L;
+  int* row_b = row_a + L;
+  const int la = token_len[a], lb = token_len[b];
+  for (int d = tid; d < L; d += T) {
+    row_a[d] = token_bytes[static_cast<size_t>(a) * L + d];
+    row_b[d] = token_bytes[static_cast<size_t>(b) * L + d];
+  }
+  if (tid == 0) {
+    s_nless = 0;
+    s_eq = -1;
+  }
+  __syncthreads();
+  for (int d = tid; d < L; d += T)
+    merged[d] = d < la ? row_a[d] : d < la + lb ? row_b[d - la] : -1;
+  __syncthreads();
+  int less = 0;
+  for (int t = lo + tid; t < hi; t += T) {
+    const int4* row = reinterpret_cast<const int4*>(token_bytes + static_cast<size_t>(t) * L);
+    const int c = compare_token(row, row[0], merged, L);
+    if (c == 0) atomicMax(&s_eq, t);  // token strings are unique
+    less += c < 0;
+  }
+  less = warp_sum(less);
+  if (lane == 0 && less) atomicAdd(&s_nless, less);
+  __syncthreads();
+  if (tid == 0) {
+    pub_nless = s_nless;
+    pub_eq = s_eq;
+  }
+  cluster.sync();
+  int ins = 0, eq = -1;
+  if (lane < ctas) {
+    ins = *cluster.map_shared_rank(&pub_nless, lane);
+    eq = *cluster.map_shared_rank(&pub_eq, lane);
+  }
+  ins = warp_sum(ins);
+  for (int o = 16; o > 0; o >>= 1) eq = max(eq, __shfl_xor_sync(kFullMask, eq, o));
+  cluster_arrive();  // no shared memory of another CTA is read below
+  const long long ns_compare = global_ns() - t_phase;
+  t_phase = global_ns();
+
+  // Vocab update: a new token's bytes, length and lex rank, and the ranks
+  // above it bumped.
   const bool grow = eq < 0;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t == 0) {
+  if (grow) {
+    // The stripe's ranks in int4s (lo is a multiple of 4), then the tail.
+    int4* lx = reinterpret_cast<int4*>(lex_rank + lo);
+    const int len4 = len >> 2;
+    for (int j = tid; j < len4; j += T) {
+      int4 r = lx[j];
+      r.x += r.x >= ins;
+      r.y += r.y >= ins;
+      r.z += r.z >= ins;
+      r.w += r.w >= ins;
+      lx[j] = r;
+    }
+    for (int t = lo + 4 * len4 + tid; t < hi; t += T) {
+      const int r = lex_rank[t];
+      if (r >= ins) lex_rank[t] = r + 1;
+    }
+    if (rank == 0 && n < V) {
+      for (int d = tid; d < L; d += T)
+        token_bytes[static_cast<size_t>(n) * L + d] = merged[d];
+      if (tid == 0) {
+        token_len[n] = la + lb;
+        lex_rank[n] = ins;
+      }
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    const int c = grow ? n : eq;
     merges[3 * static_cast<size_t>(step)] = a;
     merges[3 * static_cast<size_t>(step) + 1] = b;
-    merges[3 * static_cast<size_t>(step) + 2] = grow ? next_id : eq;
+    merges[3 * static_cast<size_t>(step) + 2] = c;
+    scalars[kSelA] = a;
+    scalars[kSelB] = b;
+    scalars[kSelC] = c;
+    scalars[kNextId] = n + (grow ? 1 : 0);
+    scalars[kNumDone] += 1;
+    stats[kRounds] += rounds;
+    stats[kVerified] += verified;
+    stats[kNsBound] += static_cast<int>(ns_bound);
+    stats[kNsVerify] += static_cast<int>(ns_verify);
+    stats[kNsCompare] += static_cast<int>(ns_compare);
+    stats[kNsBarrier] += static_cast<int>(ns_barrier);
   }
-  if (!grow || t >= V) return;
-  if (t < next_id) {
-    const int r = lex_rank[t];
-    if (r >= ins) lex_rank[t] = r + 1;
-  } else if (t == next_id) {
-    const int la = token_len[a], lb = token_len[b];
-    for (int d = 0; d < L; ++d)
-      token_bytes[static_cast<size_t>(t) * L + d] =
-          merged_byte(token_bytes, L, a, b, la, lb, d);
-    token_len[t] = la + lb;
-    lex_rank[t] = ins;
+  cluster_wait();
+  if (rank == 0 && tid == 0) {
+    const long long now = global_ns();
+    stats[kNsVocab] += static_cast<int>(now - t_phase);
+    stats[kNsStep] += static_cast<int>(now - t_step);
   }
 }
 
 // Grid over words, one thread each: a word that holds (a, b) gets the
 // leftmost non-overlapping merge in place, and the pairs of its changed
 // window are folded into the table: old pairs -freq, new pairs +freq.
-__global__ void apply_kernel(int* __restrict__ words,
-                             const int* __restrict__ freqs,
-                             int* __restrict__ counts,
-                             int* __restrict__ row_max,
-                             const int* __restrict__ scalars, int N, int W,
-                             int V) {
+__global__ void __launch_bounds__(kApplyThreads)
+    apply_kernel(int* __restrict__ words, const int* __restrict__ freqs,
+                 int* counts, int* row_max, const int* scalars, int N, int W,
+                 int V) {
+  wait_prior_grid();
+  launch_next_grid();
   if (scalars[kStopped]) return;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   const int a = scalars[kSelA], b = scalars[kSelB];
   int* w = words + static_cast<size_t>(i) * W;
   if (!yabpe::word_has_pair(w, W, a, b)) return;
-  const int eq = scalars[kEqId];
-  const int c = eq < 0 ? scalars[kNextId] : eq;
   yabpe::TableSink sink{counts, V, row_max};
-  yabpe::merge_word(w, W, freqs[i], a, b, c, sink);
+  yabpe::merge_word(w, W, freqs[i], a, b, scalars[kSelC], sink);
 }
 
-__global__ void finish_kernel(int* __restrict__ scalars) {
-  if (scalars[kStopped]) return;
-  if (scalars[kEqId] < 0) scalars[kNextId] += 1;
-  scalars[kNumDone] += 1;
+// Dynamic shared memory: the stripe's keys, then the merged bytes and
+// token rows a and b.
+size_t step_smem_bytes(int V, int L, int ctas) {
+  return sizeof(u64) * static_cast<size_t>(stripe_rows(V, ctas)) +
+         3 * sizeof(int) * static_cast<size_t>(L);
+}
+
+// The cluster for this problem: 16 CTAs where a cluster of 16 fits on the
+// card, else 8; cudaErrorLaunchOutOfResources where neither does.
+cudaError_t pick_cluster(int V, int L, int* ctas_out, size_t* smem_out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  const int sizes[2] = {16, 8};
+  for (int ctas : sizes) {
+    const size_t smem = step_smem_bytes(V, L, ctas);
+    err = cudaFuncSetAttribute(step_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ctas);
+    cfg.blockDim = dim3(kStepThreads);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ctas;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, step_kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters >= 1) {
+      *ctas_out = ctas;
+      *smem_out = smem;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorLaunchOutOfResources;
+}
+
+cudaError_t launch_step(int ctas, size_t smem, cudaStream_t st,
+                        const int* counts, int* row_max, int* lex_rank,
+                        int* token_bytes, int* token_len, int* merges,
+                        int* scalars, int* stats, int* out, int V, int L,
+                        int step, int min_frequency) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kStepThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = ctas;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, step_kernel, counts, row_max, lex_rank,
+                            token_bytes, token_len, merges, scalars, stats,
+                            out, V, L, step, min_frequency);
+}
+
+cudaError_t launch_apply(int n_blocks, cudaStream_t st, int* words,
+                         const int* freqs, int* counts, int* row_max,
+                         const int* scalars, int N, int W, int V) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks);
+  cfg.blockDim = dim3(kApplyThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, apply_kernel, words, freqs, counts,
+                            row_max, scalars, N, W, V);
 }
 
 }  // namespace
@@ -257,32 +725,55 @@ extern "C" const char* yabpe_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// CTAs in the step kernel's cluster for this problem (16 or 8), or minus
+// the cudaError_t that says why no cluster fits.
+extern "C" int yabpe_hbm_cluster_ctas(int V, int L) {
+  int ctas = 0;
+  size_t smem = 0;
+  const cudaError_t err = pick_cluster(V, L, &ctas, &smem);
+  return err == cudaSuccess ? ctas : -static_cast<int>(err);
+}
+
 // Runs merge steps [step_begin, step_end) on `stream`, without syncing.
 // Returns the first launch error (a cudaError_t), 0 when all launched.
 extern "C" int yabpe_hbm_merge_chunk(
     int* words, const int* freqs, int* counts, int* row_max,
     int* token_bytes, int* token_len, int* lex_rank, int* merges,
-    int* scalars, int N, int W, int V, int L, int step_begin, int step_end,
-    int min_frequency, void* stream) {
-  if (W > kMaxWidth || W < 2 || V > 0xFFFF || L < 1)
+    int* scalars, int* stats, int N, int W, int V, int L, int step_begin,
+    int step_end, int min_frequency, void* stream) {
+  if (W > kMaxWidth || W < 2 || V > 0xFFFF || V < 1 || L < 4 || L % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int v_blocks = (V + kThreads - 1) / kThreads;
-  const int n_blocks = (N + kThreads - 1) / kThreads;
-  const size_t merged_bytes = static_cast<size_t>(L) * sizeof(int);
+  int ctas = 0;
+  size_t smem = 0;
+  cudaError_t err = pick_cluster(V, L, &ctas, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_blocks = (N + kApplyThreads - 1) / kApplyThreads;
   for (int step = step_begin; step < step_end; ++step) {
-    select_kernel<<<1, kSelectThreads, 0, st>>>(counts, row_max, lex_rank,
-                                                scalars, V, min_frequency);
-    compare_kernel<<<v_blocks, kThreads, merged_bytes, st>>>(
-        token_bytes, token_len, scalars, L);
-    vocab_kernel<<<v_blocks, kThreads, 0, st>>>(
-        token_bytes, token_len, lex_rank, merges, scalars, V, L, step);
-    if (n_blocks > 0)
-      apply_kernel<<<n_blocks, kThreads, 0, st>>>(words, freqs, counts,
-                                                  row_max, scalars, N, W, V);
-    finish_kernel<<<1, 1, 0, st>>>(scalars);
-    const cudaError_t err = cudaGetLastError();
+    err = launch_step(ctas, smem, st, counts, row_max, lex_rank, token_bytes,
+                      token_len, merges, scalars, stats, nullptr, V, L, step,
+                      min_frequency);
+    if (err == cudaSuccess && n_blocks > 0)
+      err = launch_apply(n_blocks, st, words, freqs, counts, row_max, scalars,
+                         N, W, V);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The step kernel's select alone, on `stream`, without syncing: reads
+// next_id from scalars (stopped must be 0), tightens row_max as a step
+// does, and writes (a, b, count, rounds, rows verified, CTAs) to out[6].
+extern "C" int yabpe_hbm_select(const int* counts, int* row_max,
+                                int* lex_rank, int* scalars, int* out, int V,
+                                int min_frequency, void* stream) {
+  if (V > 0xFFFF || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int ctas = 0;
+  size_t smem = 0;
+  cudaError_t err = pick_cluster(V, 4, &ctas, &smem);
+  if (err == cudaSuccess)
+    err = launch_step(ctas, smem, static_cast<cudaStream_t>(stream), counts,
+                      row_max, lex_rank, nullptr, nullptr, nullptr, scalars,
+                      nullptr, out, V, 4, 0, min_frequency);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

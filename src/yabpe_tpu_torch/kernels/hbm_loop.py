@@ -4,9 +4,10 @@ The port's counterpart of the TPU kernel
 ``yabpe_tpu/kernels/hbm_loop.py::_hbm_loop_kernel`` (its entry point is
 ``hbm_merge_chunk`` there too). It computes what that kernel computes,
 over a layout chosen for the GPU; the kernels are CUDA C++ in
-``csrc/hbm_loop.cu`` and their design note is at the top of that file.
+``csrc/hbm_loop.cu`` (per merge step one thread-block-cluster kernel and
+one apply kernel) and their design note is at the top of that file.
 
-Three parts live here:
+The parts that live here:
 
 - :class:`HbmState`, the state tensors (all int32, one device);
 - :func:`hbm_merge_chunk`, the wrapper: it runs one chunk of merge steps
@@ -17,12 +18,19 @@ Three parts live here:
   deliberately independent of the kernel's bookkeeping: its step,
   :func:`plain_merge_steps` (shared with the twin of
   ``kernels/fused_loop.py``), selects by an exact max over the whole
-  table, applies merges with tensor ops and folds full-word deltas with
-  ``index_add_``; then it recomputes ``row_max`` exactly.
+  table (:func:`exact_select`), applies merges with tensor ops and folds
+  full-word deltas with ``index_add_``; then it recomputes ``row_max``
+  exactly;
+- :func:`cluster_select_reference`, the kernel's select round by round
+  in torch (striped candidates, several verified per round, the
+  acceptance rule, ``row_max`` tightened), and :func:`hbm_select_step`,
+  which runs the kernel's select alone on the card. Tests hold the two
+  to each other and the model to :func:`exact_select`; neither is on the
+  training path.
 
 ``LAUNCHES["hbm_merge_chunk"]`` counts the wrapper's kernel launches (one
 per chunk that reaches the card), so a run can show that it went through
-the kernel.
+the kernel; ``LAUNCHES["hbm_select_step"]`` counts the select entry's.
 """
 
 from __future__ import annotations
@@ -41,11 +49,29 @@ STOPPED = 1
 NUM_DONE = 2
 N_SCALARS = 8
 
+# Layout of ``HbmState.stats``: counters that the kernel adds to and the
+# twin leaves alone (csrc/hbm_loop.cu's enum Stat). The STAT_NS_* slots
+# are nanoseconds by the card's global timer that the step kernel's first
+# CTA spends in each phase; they wrap at 2^32, so read them as
+# differences modulo 2^32 over a chunk.
+STAT_ROUNDS = 0  # verify rounds of the select
+STAT_VERIFIED = 1  # rows read exactly by the select
+STAT_NS_BOUND = 2  # bound passes
+STAT_NS_VERIFY = 3  # verifies and acceptance
+STAT_NS_COMPARE = 4  # merged bytes, dedup compare and lex rank
+STAT_NS_VOCAB = 5  # vocab update and the record
+STAT_NS_STEP = 6  # the whole step kernel
+STAT_NS_BARRIER = 7  # the first round's first cluster barrier alone
+N_STATS = 8
+
 #: Longest word (in symbols) the apply kernel takes.
 MAX_WORD_WIDTH = 64
 
+#: CTAs in the select's thread-block cluster where a cluster of 16 fits.
+CLUSTER_CTAS = 16
+
 #: Kernel launches by wrapper; a caller zeroes an entry to count a run.
-LAUNCHES: dict[str, int] = {"hbm_merge_chunk": 0}
+LAUNCHES: dict[str, int] = {"hbm_merge_chunk": 0, "hbm_select_step": 0}
 
 
 @dataclass
@@ -63,6 +89,9 @@ class HbmState:
         lex_rank: [V] dense lex rank among live tokens, -1 for free ids.
         merges: [M, 3] (left, right, new id) per step, -1 where not taken.
         scalars: [8] next_id, stopped, num_done, then per-step temporaries.
+        stats: [8] the kernel's counters (verify rounds, rows verified,
+            the step kernel's nanoseconds by phase: ``STAT_*``); the twin
+            leaves them as they are.
     """
 
     words: torch.Tensor
@@ -74,6 +103,7 @@ class HbmState:
     lex_rank: torch.Tensor
     merges: torch.Tensor
     scalars: torch.Tensor
+    stats: torch.Tensor
 
     def tensors(self) -> list[torch.Tensor]:
         return [getattr(self, f.name) for f in fields(self)]
@@ -97,6 +127,7 @@ def check_state(state) -> None:
     shapes = {
         "freqs": (n,), "counts": (v, v), "row_max": (v,),
         "token_len": (v,), "lex_rank": (v,), "scalars": (N_SCALARS,),
+        "stats": (N_STATS,),
     }
     for f in fields(state):
         t = getattr(state, f.name)
@@ -148,6 +179,9 @@ def hbm_merge_chunk(
         return
     if state.merges.shape[0] < step_end:
         raise ValueError("HbmState.merges has fewer rows than steps")
+    _check_aligned(state.counts, state.row_max, state.lex_rank, state.token_bytes)
+    if state.token_bytes.shape[1] % 4:
+        raise ValueError("HbmState.token_bytes width must be a multiple of 4")
     lib = _library()
     n, w = state.words.shape
     v, byte_width = state.token_bytes.shape
@@ -157,10 +191,83 @@ def hbm_merge_chunk(
             *(t.data_ptr() for t in state.tensors()),
             n, w, v, byte_width, chunk_start, step_end, min_frequency, stream,
         )
+    _raise_on_error(lib, rc, "hbm_merge_chunk")
+    LAUNCHES["hbm_merge_chunk"] += 1
+
+
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    """The step kernel reads these with 16-byte loads."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("counts, row_max, lex_rank and token_bytes must be 16-byte aligned")
+
+
+def _raise_on_error(lib, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.yabpe_cuda_error_string(rc).decode()
-        raise RuntimeError(f"hbm_merge_chunk: CUDA error {rc}: {msg}")
-    LAUNCHES["hbm_merge_chunk"] += 1
+        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")
+
+
+def cluster_ctas(vocab_cap: int, byte_width: int, device=None) -> int:
+    """CTAs of the step kernel's cluster on this card for [vocab_cap,
+    byte_width] vocab tensors: 16 where a cluster of 16 fits, else 8.
+    Raises RuntimeError where no cluster fits."""
+    lib = _library()
+    with torch.cuda.device(device):
+        ctas = lib.yabpe_hbm_cluster_ctas(vocab_cap, byte_width)
+    _raise_on_error(lib, -ctas if ctas < 0 else 0, "cluster_ctas")
+    return ctas
+
+
+def hbm_select_step(
+    counts: torch.Tensor,
+    row_max: torch.Tensor,
+    lex_rank: torch.Tensor,
+    *,
+    next_id: int,
+    min_frequency: int,
+) -> tuple[int, int, int, int, int]:
+    """One select of the merge step, for tests: the pair (a, b) with the
+    highest count among the live ids [0, next_id), ties to the greatest
+    lex rank of the row, then of the column.
+
+    Tightens ``row_max`` in place as a step does and returns (a, b,
+    count, verify rounds, CTAs); a = b = -1 and count 0 when no count
+    reaches ``max(min_frequency, 1)``. CUDA tensors go through the step
+    kernel's select (one launch, then a sync to read the result); CPU
+    tensors through :func:`cluster_select_reference` with
+    :data:`CLUSTER_CTAS` stripes.
+    """
+    v = counts.shape[0]
+    for name, t in (("counts", counts), ("row_max", row_max), ("lex_rank", lex_rank)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != counts.device:
+            raise ValueError(f"{name} must be contiguous int32 on the device of counts")
+    if counts.shape != (v, v) or row_max.shape != (v,) or lex_rank.shape != (v,):
+        raise ValueError("counts must be [V, V], row_max and lex_rank [V]")
+    if not 0 < next_id <= v:
+        raise ValueError(f"next_id {next_id} outside (0, {v}]")
+    device = counts.device
+    if device.type == "cpu":
+        return (*cluster_select_reference(
+            counts, row_max, lex_rank, next_id=next_id,
+            min_frequency=min_frequency, cluster=CLUSTER_CTAS,
+        ), CLUSTER_CTAS)
+    if device.type != "cuda":
+        raise ValueError(f"hbm_select_step runs on cuda or cpu, not {device}")
+    _check_aligned(counts, row_max, lex_rank)
+    lib = _library()
+    scalars = torch.zeros(N_SCALARS, dtype=torch.int32, device=device)
+    scalars[NEXT_ID] = next_id
+    out = torch.zeros(6, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.yabpe_hbm_select(
+            counts.data_ptr(), row_max.data_ptr(), lex_rank.data_ptr(),
+            scalars.data_ptr(), out.data_ptr(), v, min_frequency, stream,
+        )
+    _raise_on_error(lib, rc, "hbm_select_step")
+    LAUNCHES["hbm_select_step"] += 1
+    a, b, count, rounds, _, ctas = out.tolist()
+    return a, b, count, rounds, ctas
 
 
 @functools.cache
@@ -170,12 +277,16 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("hbm_loop")
     lib.yabpe_hbm_merge_chunk.restype = ctypes.c_int
     lib.yabpe_hbm_merge_chunk.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.yabpe_cuda_error_string.restype = ctypes.c_char_p
     lib.yabpe_cuda_error_string.argtypes = [ctypes.c_int]
     lib.yabpe_hbm_max_width.restype = ctypes.c_int
     lib.yabpe_hbm_max_width.argtypes = []
+    lib.yabpe_hbm_cluster_ctas.restype = ctypes.c_int
+    lib.yabpe_hbm_cluster_ctas.argtypes = [ctypes.c_int] * 2
+    lib.yabpe_hbm_select.restype = ctypes.c_int
+    lib.yabpe_hbm_select.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     if lib.yabpe_hbm_max_width() != MAX_WORD_WIDTH:
         raise RuntimeError("csrc/hbm_loop.cu disagrees on MAX_WORD_WIDTH")
     return lib
@@ -239,12 +350,10 @@ def plain_merge_steps(
     ids = torch.arange(v, device=s.counts.device)
     row_max = s.counts.amax(dim=1)
     for step in range(chunk_start, min(chunk_start + chunk_size, num_merges)):
-        best = int(row_max.max())
+        a, b, best = exact_select(s.counts, row_max, s.lex_rank)
         if best < max(min_frequency, 1):
             scal[STOPPED] = 1
             break
-        a = int(torch.where(row_max == best, s.lex_rank, -1).argmax())
-        b = int(torch.where(s.counts[a] == best, s.lex_rank, -1).argmax())
 
         merged, merged_len = lexkey.concat_token_bytes(
             s.token_bytes, s.token_len, a, b
@@ -272,6 +381,97 @@ def plain_merge_steps(
 
     scal[NEXT_ID], scal[NUM_DONE] = next_id, num_done
     s.scalars.copy_(torch.tensor(scal, dtype=torch.int32))
+
+
+def exact_select(
+    counts: torch.Tensor, row_max: torch.Tensor, lex_rank: torch.Tensor
+) -> tuple[int, int, int]:
+    """(a, b, count) of the highest count of ``counts``, ties to the
+    greatest lex rank of the row, then of the column; ``row_max`` is the
+    exact max of each row."""
+    best = int(row_max.max())
+    a = int(torch.where(row_max == best, lex_rank, -1).argmax())
+    b = int(torch.where(counts[a] == best, lex_rank, -1).argmax())
+    return a, b, best
+
+
+def _pack_key(count, lex, idx):
+    """csrc/hbm_loop.cu's select key: count, then lex rank + 1, then id,
+    in 32 + 16 + 16 bits (ints or int64 tensors)."""
+    return (count << 32) | (((lex + 1) & 0xFFFF) << 16) | (idx & 0xFFFF)
+
+
+def _stripe_bounds(n: int, ctas: int) -> list[tuple[int, int]]:
+    """The rows [lo, hi) that each CTA of the select owns among the live
+    rows [0, n): stripes of ceil(n / ctas) rows rounded up to a multiple
+    of 4, the last ones short or empty."""
+    size = (-(-n // ctas) + 3) // 4 * 4
+    return [(min(c * size, n), min(c * size + size, n)) for c in range(ctas)]
+
+
+def cluster_select_reference(
+    counts: torch.Tensor,
+    row_max: torch.Tensor,
+    lex_rank: torch.Tensor,
+    *,
+    next_id: int,
+    min_frequency: int,
+    cluster: int = CLUSTER_CTAS,
+) -> tuple[int, int, int, int]:
+    """The select of csrc/hbm_loop.cu's step kernel, round by round, in
+    torch: a model of the kernel for tests, not a twin of the step.
+
+    ``row_max`` is an upper bound on each row's max count (stale rows
+    allowed); ``lex_rank`` is the dense lex rank of the live ids [0,
+    next_id). Each round takes the top two bound keys (count, lex rank,
+    id) of each of ``cluster`` row stripes, stops when no bound reaches
+    ``max(min_frequency, 1)``, and verifies each stripe's top row whose
+    key beats the best exact key so far: its exact max over the live
+    columns tightens ``row_max`` in place. The best exact key is accepted
+    when it is at least every bound key of a row not verified in the
+    round (a verified stripe's second key, another stripe's top key).
+
+    Returns (a, b, count, rounds): the pair and its count, the column
+    the greatest lex rank among the row's columns equal to the count; a
+    = b = -1 and count 0 for a stop.
+    """
+    n = next_id
+    thr = max(min_frequency, 1)
+    lex = lex_rank[:n].long()
+    ids = torch.arange(n, device=counts.device)
+    stripes = _stripe_bounds(n, cluster)
+    best = best_col = rounds = 0
+    while True:
+        rounds += 1
+        keys = _pack_key(row_max[:n].long(), lex, ids)
+        tops = [
+            (keys[lo:hi].sort(descending=True).values[:2].tolist() + [0, 0])[:2]
+            for lo, hi in stripes
+        ]
+        if max(t1 for t1, _ in tops) >> 32 < thr:
+            return -1, -1, 0, rounds
+        unverified = 0
+        verified = []
+        for t1, t2 in tops:
+            if t1 > best and t1 >> 32 > 0:
+                verified.append(t1)
+                unverified = max(unverified, t2)
+            else:
+                unverified = max(unverified, t1)
+        for t1 in verified:
+            r = t1 & 0xFFFF
+            row = counts[r, :n]
+            m = int(row.max())
+            row_max[r] = m
+            exact = (m << 32) | (t1 & 0xFFFFFFFF)
+            if exact > best:
+                best = exact
+                best_col = int(torch.where(row == m, lex, -1).argmax())
+        if best >= unverified:
+            break
+    if best >> 32 < thr:
+        return -1, -1, 0, rounds
+    return best & 0xFFFF, best_col, best >> 32, rounds
 
 
 def _pairs(words: torch.Tensor, freqs: torch.Tensor, mask: torch.Tensor | None = None):

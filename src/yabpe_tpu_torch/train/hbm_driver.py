@@ -22,6 +22,7 @@ from yabpe_tpu_torch.core.wordtable import WordTable
 from yabpe_tpu_torch.kernels.hbm_loop import (
     MAX_WORD_WIDTH,
     N_SCALARS,
+    N_STATS,
     NEXT_ID,
     STOPPED,
     HbmState,
@@ -72,7 +73,7 @@ def state_bytes(n_words: int, width: int, vocab_cap: int, token_width: int,
     v = vocab_cap
     return 4 * (
         n_words * (width + 1) + v * v + v * (token_width + 3)
-        + 3 * max(num_merges, 1) + N_SCALARS
+        + 3 * max(num_merges, 1) + N_SCALARS + N_STATS
     )
 
 
@@ -159,6 +160,7 @@ def state_from_numpy(
         lex_rank=put(lex_rank),
         merges=torch.full((max(num_merges, 1), 3), -1, dtype=torch.int32, device=device),
         scalars=put(scalars),
+        stats=torch.zeros(N_STATS, dtype=torch.int32, device=device),
     )
 
 

@@ -36,6 +36,64 @@ def _need_cuda() -> None:
         pytest.skip("needs a CUDA device")
 
 
+#: Cases of the select's states (select_state); "wide" is for the card.
+SELECT_CASES = (
+    "random", "ties_across_stripes", "ties_within_row", "stale_equals_winner",
+    "all_stale", "empty", "min_frequency", "wide",
+)
+
+
+def select_state(name: str, seed: int):
+    """A state for one select: (counts [V, V], row_max [V], lex_rank [V],
+    next_id, min_frequency), int32 CPU tensors. Counts are random over the
+    live ids [0, next_id) and row_max an upper bound on each row's max,
+    stale on a third of the rows, with the case planted:
+
+    - ties_across_stripes: six rows, spread over the stripes, share the
+      top count (the greatest lex rank wins);
+    - ties_within_row: one row holds the top count in five columns;
+    - stale_equals_winner: a row ranked above the winner has a bound equal
+      to the winner's count and a lower exact max;
+    - all_stale: every live row's bound is above its exact max;
+    - empty: no count at all, under stale bounds (a stop);
+    - min_frequency: counts of 1 under min_frequency 2 (a stop);
+    - wide: V = 13,001, so a count row is read in 16-byte loads with a
+      misaligned head and several loads in flight.
+    """
+    rng = np.random.default_rng(seed)
+    v = 13001 if name == "wide" else int(rng.integers(60, 260))
+    n = int(rng.integers(v // 2, v + 1))
+    nnz = 200_000 if name == "wide" else n * n // 10
+    counts = np.zeros((v, v), dtype=np.int32)
+    counts[rng.integers(0, n, nnz), rng.integers(0, n, nnz)] = rng.integers(1, 9, nnz)
+    lex = np.full(v, -1, dtype=np.int32)
+    lex[:n] = rng.permutation(n)
+    rows = rng.permutation(n)
+    top = int(counts.max()) + 5
+    min_freq = 2
+    if name == "ties_across_stripes":
+        for r in rows[:6]:
+            counts[r, rng.integers(0, n)] = top
+    elif name in ("ties_within_row", "stale_equals_winner"):
+        counts[rows[0], rng.choice(n, 5 if name == "ties_within_row" else 1, replace=False)] = top
+    elif name == "empty":
+        counts[:] = 0
+    elif name == "min_frequency":
+        counts = np.minimum(counts, 1)
+    exact = counts.max(axis=1)
+    row_max = exact.copy()
+    stale = (rng.random(v) < (1.0 if name == "all_stale" else 0.3))
+    row_max[stale] += rng.integers(1, 4, v)[stale]
+    if name == "stale_equals_winner":
+        win, other = rows[0], rows[1]
+        if lex[other] < lex[win]:
+            lex[[win, other]] = lex[[other, win]]
+        row_max[other] = top
+    row_max[n:] = 0
+    return (torch.from_numpy(counts), torch.from_numpy(row_max.astype(np.int32)),
+            torch.from_numpy(lex), n, min_freq)
+
+
 def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fused=False):
     """K2 (or K1 with ``fused``) against its twin, chunk by chunk, from one
     state; returns the kernel's state."""
@@ -138,6 +196,31 @@ def test_trainer_on_cuda_without_fused_kernel_runs_k2():
     assert fused_loop.LAUNCHES["fused_merge_chunk"] == fused_before
     k1 = BBPETrainer(BBPETrainerConfig(**cfg, use_fused_kernel=True)).train([DATA / "large.txt"])
     assert k2.merges == k1.merges and k2.vocab == k1.vocab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,seed", [("random", s) for s in range(4)] + [(c, 0) for c in SELECT_CASES[1:]]
+)
+def test_kernel_select_matches_model(name, seed):
+    """The step kernel's select alone (one cluster launch) against
+    cluster_select_reference with the kernel's cluster size: the same
+    pair, count and verify rounds, and the same tightened row_max."""
+    _need_cuda()
+    counts, row_max, lex, n, min_freq = select_state(name, seed)
+    model_max = row_max.clone()
+    dev = [t.cuda() for t in (counts, row_max, lex)]
+    before = hbm_loop.LAUNCHES["hbm_select_step"]
+    a, b, count, rounds, ctas = hbm_loop.hbm_select_step(
+        *dev, next_id=n, min_frequency=min_freq
+    )
+    assert hbm_loop.LAUNCHES["hbm_select_step"] == before + 1
+    assert ctas in (8, 16)
+    want = hbm_loop.cluster_select_reference(
+        counts, model_max, lex, next_id=n, min_frequency=min_freq, cluster=ctas
+    )
+    assert (a, b, count, rounds) == want
+    assert torch.equal(dev[1].cpu(), model_max)
 
 
 def _replay_vs_twin(words, freqs, chain, cps, cps0, vocab_cap):

@@ -27,6 +27,8 @@ from yabpe_tpu_torch.kernels import hbm_loop
 from yabpe_tpu_torch.train import hbm_driver
 from yabpe_tpu_torch.train.state import merges_to_bytes
 
+from .test_torch_cuda import SELECT_CASES, select_state
+
 SPECIALS = ["<|endoftext|>"]
 
 
@@ -259,3 +261,77 @@ def test_no_hidden_cpu():
     assert hbm_loop.LAUNCHES["hbm_merge_chunk"] == before  # the twin ran
     assert cpu_state.merges.tolist()[:2] == [[97, 98, 256], [256, 256, 257]]
 
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize(
+    "name,seed", [("random", s) for s in range(4)] + [(c, 0) for c in SELECT_CASES[1:-1]]
+)
+def test_cluster_select_model_matches_exact_select(name, seed, cluster):
+    """The kernel's select, modelled round by round, picks the exact
+    (count, lex(a), lex(b)) max of the twin's step under stale bounds, or
+    stops where the twin stops; row_max stays an upper bound and each row
+    it verified is tightened to its exact max."""
+    counts, row_max, lex, n, min_freq = select_state(name, seed)
+    before = row_max.clone()
+    a, b, count, rounds = hbm_loop.cluster_select_reference(
+        counts, row_max, lex, next_id=n, min_frequency=min_freq, cluster=cluster
+    )
+    exact = counts.amax(dim=1)
+    want = hbm_loop.exact_select(counts, exact, lex)
+    if want[2] < max(min_freq, 1):
+        assert (a, b, count) == (-1, -1, 0)
+    else:
+        assert (a, b, count) == want
+    assert rounds >= 1
+    assert bool((row_max >= exact).all()) and bool((row_max <= before).all())
+    changed = row_max != before
+    assert torch.equal(row_max[changed], exact[changed])
+    if name in ("ties_across_stripes", "ties_within_row", "stale_equals_winner"):
+        assert count == int(counts.max())
+    if name == "stale_equals_winner":  # the stale row ranks above the winner
+        assert int(lex[a]) < int(lex.max()) and bool(changed.any())
+
+
+def test_cluster_select_model_through_a_run(small_corpus):
+    """Step by step through the small corpus's merges to the stop, with bounds
+    that are raised as the table changes and lowered only by the select's
+    own tightening, as the kernel keeps them: the modelled select equals
+    the twin's exact select at every step."""
+    _, jt = small_corpus
+    base = list(Vocab.base(SPECIALS).tokens())
+    v = 420
+    st = hbm_driver.state_from_numpy(jt.words, jt.freqs, base, v, "cpu")
+    bound = st.counts.amax(dim=1)
+    rounds = []
+    for step in range(150):
+        n = int(st.scalars[hbm_loop.NEXT_ID])
+        a, b, count, r = hbm_loop.cluster_select_reference(
+            st.counts, bound, st.lex_rank, next_id=n, min_frequency=1, cluster=8
+        )
+        want = hbm_loop.exact_select(st.counts, st.counts.amax(dim=1), st.lex_rank)
+        rounds.append(r)
+        if want[2] < 1:  # no pair left: both stop
+            assert (a, b, count) == (-1, -1, 0)
+            break
+        assert (a, b, count) == want, step
+        hbm_loop.plain_merge_steps(
+            st, chunk_start=step, chunk_size=1, num_merges=v - len(base), min_frequency=1
+        )
+        assert st.merges[step, :2].tolist() == [a, b]
+        bound = torch.maximum(bound, st.counts.amax(dim=1))
+    assert max(rounds) >= 2  # stale bounds made some step verify again
+
+
+def test_select_step_on_cpu_runs_the_model():
+    counts, row_max, lex, n, min_freq = select_state("random", 7)
+    model_max = row_max.clone()
+    before = hbm_loop.LAUNCHES["hbm_select_step"]
+    got = hbm_loop.hbm_select_step(counts, row_max, lex, next_id=n, min_frequency=min_freq)
+    want = hbm_loop.cluster_select_reference(
+        counts, model_max, lex, next_id=n, min_frequency=min_freq,
+        cluster=hbm_loop.CLUSTER_CTAS,
+    )
+    assert got == (*want, hbm_loop.CLUSTER_CTAS)
+    assert torch.equal(row_max, model_max)
+    assert hbm_loop.LAUNCHES["hbm_select_step"] == before
