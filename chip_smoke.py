@@ -59,7 +59,35 @@ package. Phases, none of whose failures is caught:
       count zeroed before and read after; the merges and vocab must equal
       phase 4c's native loop; prints the merge seconds, epochs, commits
       per epoch, fallbacks, peak device memory and the epochs' split into
-      select / replay / validate / commit.
+      select / replay / validate / commit;
+9. checkpoint and resume, and words past 64 symbols:
+   a. K2's replay mode against its twin: from phase 3's starting state
+      (5 MB realistic fixture, vocab 4096) with phase 3's first 1,000
+      merges preloaded, one 2048-step chunk with replay_until = 1,000 on
+      the kernel and on the twin; merges, words, counts and the vocab
+      tensors must be exactly equal, row_max at least each row's max, and
+      the merges phase 3's; then, on another copy, the 1,000 replayed
+      steps and the 1,048 live ones as two calls timed by CUDA events
+      (us per step each, the replayed chunk's bound by bytes, and the
+      kernel's own replay timer);
+   b. the slice at full width: phase 4's 100 MB corpus at vocab 32,000
+      through BBPETrainer(..., checkpoint_dir=tmp,
+      checkpoint_every_chunks=1) on the card; the saved record cut to
+      step 10,000 (4 x 2048 + 1,808, not on a chunk boundary), then the
+      same training again from it, with K2's launch count zeroed before:
+      K2 replays 10,000 steps and trains the rest; the merges and vocab of
+      both runs must be byte-identical to phase 4c's native loop; prints
+      both runs' merge seconds and the replayed steps;
+   c. words past 64 symbols on the card: the 5 MB realistic fixture plus
+      2,000 lines of 65-300-byte pre-tokens (scripts/wide_lines.py, seed
+      0) at vocab 4,096, min_frequency 2 (the bigvocab engine), and
+      tests/data/large.txt plus 2,000 such lines (seed 1) at vocab 1024,
+      min_frequency 2 (the incremental engine), each with the K1, K2 and
+      K3 launch counts zeroed before and still 0 after; the merges and
+      vocab must equal the native loop's; prints the merge seconds and
+      the us per merge. Cuts: vocab 4,096, not 32,000, because these
+      engines hold no kernel of their own and are plain torch ops; the
+      chip time goes to 9b.
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -117,7 +145,7 @@ def timed_chunk(fn, state, **kw) -> float:
 def kernel_vs_twin(label, table, base, vocab_cap, min_frequency, card):
     """One chunk through the kernel and through the twin from one state;
     returns (kernel ms, twin ms, bytes needed, max abs difference, steps,
-    the select's verify rounds)."""
+    the select's verify rounds, the kernel's merge record on the host)."""
     import torch
 
     from yabpe_tpu_torch.kernels import hbm_loop
@@ -148,9 +176,99 @@ def kernel_vs_twin(label, table, base, vocab_cap, min_frequency, card):
           f"verified_rows_per_step={verified / max(steps, 1)} cluster_ctas={ctas} "
           f"twin_chunk_ms={plain_ms} needed_bytes={tally['bytes']} "
           f"max_abs_err={err} (tolerance: exact) [{card}]")
+    merges = kern.merges.cpu().numpy()
     del twin, kern
     torch.cuda.empty_cache()
-    return ms, plain_ms, tally["bytes"], err, steps, rounds
+    return ms, plain_ms, tally["bytes"], err, steps, rounds, merges
+
+
+def k2_replay_vs_twin(table, base, vocab_cap, min_frequency, record, until, card):
+    """K2's replay mode against its twin: one CHUNK-step chunk from the
+    starting state with ``record``'s first ``until`` rows preloaded and
+    replay_until = ``until``; then, on another copy, the replayed steps and
+    the live ones as two timed calls. Returns (replay ms, twin replay ms,
+    replay bytes needed, replayed steps, max abs difference)."""
+    import torch
+
+    from yabpe_tpu_torch.kernels import hbm_loop
+    from yabpe_tpu_torch.train.hbm_driver import state_from_numpy
+
+    num = vocab_cap - len(base)
+    start = state_from_numpy(table.words, table.freqs, base, vocab_cap, "cuda", num_merges=num)
+    start.merges[:until] = torch.as_tensor(record[:until], device="cuda")
+    twin, kern, split = start.clone(), start.clone(), start
+    kw = dict(chunk_start=0, chunk_size=CHUNK, num_merges=num, min_frequency=min_frequency,
+              replay_until=until)
+    chunk_plain_ms = timed_chunk(hbm_loop.hbm_merge_chunk_reference, twin, **kw)
+    chunk_ms = timed_chunk(hbm_loop.hbm_merge_chunk, kern, **kw)
+    err = 0
+    for name in ("merges", "words", "counts", "token_bytes", "token_len", "lex_rank"):
+        a, b = getattr(kern, name), getattr(twin, name)
+        diff = int((a.long() - b.long()).abs().max())
+        err = max(err, diff)
+        check(diff == 0, f"k2 replay: kernel and twin differ in {name} (max {diff})")
+    check(torch.equal(kern.scalars[:3], twin.scalars[:3])
+          and int(kern.scalars[hbm_loop.DIVERGED]) == int(twin.scalars[hbm_loop.DIVERGED]) == 0,
+          "k2 replay: scalars differ")
+    check(bool((kern.row_max >= kern.counts.amax(dim=1)).all()), "k2 replay: row_max below a row max")
+    check((kern.merges.cpu().numpy()[:CHUNK] == record[:CHUNK]).all(),
+          "k2 replay: merges differ from phase 3's")
+    replayed = int(kern.stats[hbm_loop.STAT_REPLAYED])
+    check(replayed == until, f"k2 replay: {replayed} steps replayed, expected {until}")
+
+    # the same steps as two calls: the replayed ones, then the live ones
+    replay_twin, tally = split.clone(), {}
+    replay_plain_ms = timed_chunk(hbm_loop.hbm_merge_chunk_reference, replay_twin, tally=tally,
+                                  **{**kw, "chunk_size": until})
+    del replay_twin
+    replay_ms = timed_chunk(hbm_loop.hbm_merge_chunk, split, **{**kw, "chunk_size": until})
+    live_ms = timed_chunk(hbm_loop.hbm_merge_chunk, split,
+                          **{**kw, "chunk_start": until, "chunk_size": CHUNK - until})
+    for name in ("merges", "words", "counts", "token_bytes", "token_len", "lex_rank"):
+        check(torch.equal(getattr(split, name), getattr(kern, name)),
+              f"k2 replay: the split run differs in {name}")
+    live = int(kern.scalars[2]) - until
+    ns_replay = (int(split.stats[hbm_loop.STAT_NS_REPLAY]) % 2**32) / until
+    print(f"k2_replay_vs_twin_5M_v4096: V={vocab_cap} replay_until={until} chunk={CHUNK} "
+          f"kernel_chunk_ms={chunk_ms} twin_chunk_ms={chunk_plain_ms} "
+          f"replayed_steps={replayed} live_steps={live} "
+          f"replay_us_per_step={1e3 * replay_ms / until} live_us_per_step={1e3 * live_ms / live} "
+          f"replay_step_kernel_us={ns_replay / 1e3} (own timer) "
+          f"replay_twin_ms={replay_plain_ms} replay_needed_bytes={tally['bytes']} "
+          f"max_abs_err={err} (tolerance: exact) [{card}]")
+    del twin, kern, split
+    torch.cuda.empty_cache()
+    return replay_ms, replay_plain_ms, tally["bytes"], replayed, err
+
+
+def wide_words_run(label, files, vocab_cap, route, card):
+    """Train ``files`` on the card with the merge kernels' launch counts
+    zeroed: the route must be the fallback engine ``route``, no kernel may
+    launch, and the merges and vocab must equal the native loop's."""
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+    from yabpe_tpu_torch.kernels import fused_loop, hbm_loop, replay_emit
+
+    cfg = dict(vocab_size=vocab_cap, min_frequency=2, max_workers=8,
+               chunk_size_bytes=32 << 20, special_tokens=SPECIALS)
+    counts = ((hbm_loop.LAUNCHES, "hbm_merge_chunk"), (fused_loop.LAUNCHES, "fused_merge_chunk"),
+              (replay_emit.LAUNCHES, "replay_emit_chunk"))
+    for launches, name in counts:
+        launches[name] = 0
+    trainer = BBPETrainer(BBPETrainerConfig(**cfg, device="cuda"))
+    model = trainer.train(files)
+    launched = {name: launches[name] for launches, name in counts}
+    stats = trainer.last_stats
+    n = len(model.merges)
+    native_trainer = BBPETrainer(BBPETrainerConfig(**cfg, use_native_loop=True))
+    native_model = native_trainer.train(files)
+    print(f"{label}: route={trainer.route} merges={n} ingest_s={stats['ingest_seconds']} "
+          f"merge_s={stats['merge_seconds']} us_per_merge={1e6 * stats['merge_seconds'] / max(n, 1)} "
+          f"unique_pretokens={int(stats['unique_pretokens'])} kernel_launches={launched} "
+          f"native_merge_s={native_trainer.last_stats['merge_seconds']} [{card}]")
+    check(trainer.route == route, f"{label}: route {trainer.route}, expected {route}")
+    check(not any(launched.values()), f"{label}: a merge kernel launched: {launched}")
+    check(model.merges == native_model.merges, f"{label}: merges differ from the native loop")
+    check(model.vocab == native_model.vocab, f"{label}: vocab differs from the native loop")
 
 
 def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
@@ -291,6 +409,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "scripts"))
 
     from gen_corpus import generate
+    from wide_lines import wide_lines
 
     from yabpe_tpu_torch import BBPETokenizer, BBPETrainer, BBPETrainerConfig, native
     from yabpe_tpu_torch.core.vocab import Vocab
@@ -298,6 +417,7 @@ def main() -> int:
     from yabpe_tpu_torch.io.native import load_model
     from yabpe_tpu_torch.kernels import _build, fused_loop, hbm_loop, replay_emit
     from yabpe_tpu_torch.pretok.ingest import count_pretokens
+    from yabpe_tpu_torch.train import checkpoint as ckpt
 
     t_all = time.perf_counter()
     # ---- 1. card
@@ -330,7 +450,7 @@ def main() -> int:
     # ---- 3. kernel against twin, 5 MB realistic fixture at vocab 4096
     fixture = REPO / "tests" / "fixtures_gpt2" / "bench_5M_realistic.txt"
     small = WordTable.from_counter(count_pretokens([fixture], SPECIALS, **ingest))
-    kernel_vs_twin("kernel_vs_twin_5M_v4096", small, base, 4096, 2, card)
+    small_merges = kernel_vs_twin("kernel_vs_twin_5M_v4096", small, base, 4096, 2, card)[-1]
 
     # the 100 MB corpus and its word table serve phases 4 and 8
     corpus_dir = tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_corpus_")
@@ -346,7 +466,7 @@ def main() -> int:
         full = WordTable.from_counter(count_pretokens([corpus], SPECIALS, **ingest))
         print(f"word table: {full.num_words} words, width {full.width}, "
               f"{time.perf_counter() - t0:.3f} s (host)")
-        ms, plain_ms, need, err, k2_steps, k2_rounds = kernel_vs_twin(
+        ms, plain_ms, need, err, k2_steps, k2_rounds, _ = kernel_vs_twin(
             "kernel_vs_twin_100M_v32000", full, base, 32000, 2, card
         )
 
@@ -509,9 +629,64 @@ def main() -> int:
     check(k3_launches > 0, "the sharded main path never launched replay_emit_chunk")
     check(sharded_model.merges == big_native.merges, "sharded merges differ from the native loop")
     check(sharded_model.vocab == big_native.vocab, "sharded vocab differs from the native loop")
-    corpus_dir.cleanup()
     print(f"replay_emit_chunk, one epoch's chain over 4 shards at V=32000: kernel {k3_ms} ms, "
           f"twin {k3_plain_ms} ms, bound {k3_bound_ms} ms by bytes [{card}]")
+
+    # ---- 9a. K2's replay mode against its twin, phase 3's state and merges
+    rp_ms, rp_plain_ms, rp_need, rp_steps, rp_err = k2_replay_vs_twin(
+        small, base, 4096, 2, small_merges, 1000, card
+    )
+    rp_bound_ms = rp_need / HBM_BYTES_PER_S * 1e3
+    del small
+
+    # ---- 9b. checkpointed training at full width, then a resume through
+    # K2's replay mode from a record cut off the chunk grid
+    cut = 10_000
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_ckpt_") as ckdir:
+        cfg = BBPETrainerConfig(
+            vocab_size=32000, min_frequency=2, max_workers=8,
+            chunk_size_bytes=32 << 20, special_tokens=SPECIALS,
+            align_chunks_to_newline=True, device="cuda",
+            checkpoint_dir=ckdir, checkpoint_every_chunks=1,
+        )
+        trainer = BBPETrainer(cfg)
+        hbm_loop.LAUNCHES["hbm_merge_chunk"] = 0
+        ck_model = trainer.train([corpus])
+        ck_launches = hbm_loop.LAUNCHES["hbm_merge_chunk"]
+        ck_stats = trainer.last_stats
+        check(trainer.route == "K2", f"checkpointed run took {trainer.route}, not K2")
+        check(ck_model.merges == big_native.merges, "checkpointed merges differ from the native loop")
+        check(ck_model.vocab == big_native.vocab, "checkpointed vocab differs from the native loop")
+        merges_ids, saved = ckpt.load_checkpoint(ckdir, cfg)
+        check(saved == 32000 - len(base), f"the last checkpoint is at step {saved}")
+        record = merges_ids.copy()
+        record[cut:] = -1
+        ckpt.save_checkpoint(ckdir, record, cut, cfg)
+        trainer = BBPETrainer(cfg)
+        hbm_loop.LAUNCHES["hbm_merge_chunk"] = 0
+        resumed = trainer.train([corpus])
+        replay_launches = hbm_loop.LAUNCHES["hbm_merge_chunk"]
+        rs_stats = trainer.last_stats
+    print(f"checkpointed main path (device): merge_s={ck_stats['merge_seconds']} "
+          f"kernel_launches={ck_launches} [{card}]")
+    print(f"resumed main path (device, K2 replay): merge_s={rs_stats['merge_seconds']} "
+          f"replayed_steps={cut} live_steps={len(resumed.merges) - cut} "
+          f"kernel_launches={replay_launches} [{card}]")
+    check(replay_launches > 0, "the resumed run never launched hbm_merge_chunk")
+    check(resumed.merges == big_native.merges, "resumed merges differ from the native loop")
+    check(resumed.vocab == big_native.vocab, "resumed vocab differs from the native loop")
+    corpus_dir.cleanup()
+
+    # ---- 9c. words past 64 symbols, on the fallback engines on the card
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_wide_") as tmp:
+        tmp = Path(tmp)
+        for name, lines, seed in (("wide_5M.txt", fixture, 0), ("wide_large.txt", REPO / "tests" / "data" / "large.txt", 1)):
+            (tmp / name).write_text(
+                lines.read_text(encoding="utf-8") + "\n" + "\n".join(wide_lines(2000, seed)) + "\n",
+                encoding="utf-8",
+            )
+        wide_words_run("wide_words_5M_v4096", [tmp / "wide_5M.txt"], 4096, "bigvocab", card)
+        wide_words_run("wide_words_large_v1024", [tmp / "wide_large.txt"], 1024, "incremental", card)
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {
         "kernels": [
@@ -521,12 +696,17 @@ def main() -> int:
                 "source": "src/yabpe_tpu_torch/csrc/hbm_loop.cu",
                 "replaces": "src/yabpe_tpu/kernels/hbm_loop.py:227",
                 "launches": launches,
-                "max_abs_err": err,
+                "max_abs_err": max(err, rp_err),
                 "ms": ms,
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": "bytes",
                 "library_ms": None,
+                "replay_launches": replay_launches,
+                "replay_steps": rp_steps,
+                "replay_ms": rp_ms,
+                "replay_plain_ms": rp_plain_ms,
+                "replay_bound_ms": rp_bound_ms,
             },
             {
                 "name": "fused_merge_chunk",

@@ -10,10 +10,12 @@
 //   token_bytes [V, L] int32   token byte strings, -1 padded
 //   token_len   [V], lex_rank [V] int32 (dense lex rank, -1 = inactive)
 //   merges      [M, 3] int32   (a, b, c) per step, -1 where not taken
-//   scalars     [8]    int32   next_id, stopped, num_done, then this
-//                              step's (a, b, c) for the apply kernel
-//   stats       [8]    int32   verify rounds, rows verified, and the step
-//                              kernel's time by phase (enum Stat)
+//   scalars     [8]    int32   next_id, stopped, num_done, this step's
+//                              (a, b, c) for the apply kernel, and the
+//                              replay divergence flag
+//   stats       [10]   int32   verify rounds, rows verified, the step
+//                              kernel's time by phase, and the replayed
+//                              steps and their time (enum Stat)
 // Each step is the JAX kernel's chain: select the pair with the highest
 // count (ties to the lexicographically greatest (left, right) byte
 // strings), grow the vocab (merged bytes, dedup against live tokens,
@@ -21,6 +23,20 @@
 // word that holds the pair, and fold the count deltas into the table. A
 // count below min_frequency sets `stopped`, and every later kernel returns
 // at once.
+//
+// Replay mode (checkpoint resume; the JAX kernel's `replay_until`,
+// hbm_loop.py:375,394-400,496-515). A step below `replay_until` takes
+// (a, b) from its row of `merges`, which the driver preloaded with the
+// checkpoint's record, in place of the select: it skips the bound pass and
+// the verify rounds and runs the dedup compare, the lex rank, the vocab
+// update, the record write and the apply exactly as a live step does. So
+// the words, counts and vocab it leaves are a live run's. A record with
+// a < 0 stops the loop, as the JAX kernel's _SEL_STOP does. A record
+// whose ids are not live, or whose merged id differs from the id the vocab
+// update gives, sets scalars[kDiverged] to the step + 1 and stops; the
+// driver raises. Replay reads no count row and tightens no bound: row_max
+// stays an upper bound through the apply's atomicMax, so the lazy select
+// is exact when the live steps begin.
 //
 // Launch shape. Two launches per step, chained by programmatic dependent
 // launch (PDL: each kernel lets the next one launch at its start, and
@@ -113,6 +129,7 @@ enum Scalar : int {
   kSelA = 3,     // this step's left id
   kSelB = 4,     // this step's right id
   kSelC = 5,     // this step's merged id (new, or the live duplicate)
+  kDiverged = 6, // 1 + the replayed step whose record the vocab disagrees with
 };
 
 // HbmState.stats: counters, and nanoseconds by %globaltimer that CTA 0
@@ -127,6 +144,8 @@ enum Stat : int {
   kNsVocab = 5,    // vocab update and the record, to the last barrier
   kNsStep = 6,     // the whole step kernel
   kNsBarrier = 7,  // the first round's first cluster barrier alone
+  kReplayed = 8,   // replayed steps (in none of the slots above)
+  kNsReplay = 9,   // the whole step kernel of the replayed steps
 };
 
 // yabpe_hbm_select's output.
@@ -361,12 +380,13 @@ __device__ __forceinline__ int compare_token(const int4* row, int4 v,
 // One merge step but its apply, in one cluster (the note at the top).
 // With `out` set it runs the select alone and writes kNumOut ints there,
 // (a, b, count, rounds, rows verified, CTAs) with a = b = -1 and count 0
-// for a stop, and leaves scalars, stats and the vocab as they are.
+// for a stop, and leaves scalars, stats and the vocab as they are. A step
+// below `replay_until` replays its record (the note at the top).
 __global__ void __launch_bounds__(kStepThreads, 1)
     step_kernel(const int* counts, int* row_max, int* lex_rank,
                 int* token_bytes, int* token_len, int* merges, int* scalars,
                 int* stats, int* out, int V, int L, int step,
-                int min_frequency) {
+                int min_frequency, int replay_until) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ u64 red[66];
   __shared__ u64 pub_top1, pub_top2, pub_exact;
@@ -396,102 +416,113 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   u64 best = 0;  // the best exact key verified so far
   int best_col = 0, rounds = 0, verified = 0;
   bool stop = false;
-  for (;;) {
-    ++rounds;
-    // Bound pass: the top two keys of this stripe.
-    u64 t1 = 0, t2 = 0;
-    if (rounds == 1) {
-      const int4* rm = reinterpret_cast<const int4*>(row_max + lo);
-      const int4* lx = reinterpret_cast<const int4*>(lex_rank + lo);
-      const int n4 = len >> 2;
-      for (int j = tid; j < n4; j += T) {
-        const int4 m = rm[j], l = lx[j];
-        const int r = lo + 4 * j;
-        const u64 k0 = pack_key(m.x, l.x, r), k1 = pack_key(m.y, l.y, r + 1);
-        const u64 k2 = pack_key(m.z, l.z, r + 2), k3 = pack_key(m.w, l.w, r + 3);
-        keys[4 * j] = k0;
-        keys[4 * j + 1] = k1;
-        keys[4 * j + 2] = k2;
-        keys[4 * j + 3] = k3;
-        top2_add(t1, t2, k0);
-        top2_add(t1, t2, k1);
-        top2_add(t1, t2, k2);
-        top2_add(t1, t2, k3);
+  const bool replay = step < replay_until;
+  int a = 0, b = 0;
+  bool bad_record = false;
+  if (replay) {
+    a = merges[3 * static_cast<size_t>(step)];
+    b = merges[3 * static_cast<size_t>(step) + 1];
+    bad_record = a >= 0 && (a >= n || b < 0 || b >= n);
+    stop = a < 0 || bad_record;
+  } else {
+    for (;;) {
+      ++rounds;
+      // Bound pass: the top two keys of this stripe.
+      u64 t1 = 0, t2 = 0;
+      if (rounds == 1) {
+        const int4* rm = reinterpret_cast<const int4*>(row_max + lo);
+        const int4* lx = reinterpret_cast<const int4*>(lex_rank + lo);
+        const int n4 = len >> 2;
+        for (int j = tid; j < n4; j += T) {
+          const int4 m = rm[j], l = lx[j];
+          const int r = lo + 4 * j;
+          const u64 k0 = pack_key(m.x, l.x, r), k1 = pack_key(m.y, l.y, r + 1);
+          const u64 k2 = pack_key(m.z, l.z, r + 2), k3 = pack_key(m.w, l.w, r + 3);
+          keys[4 * j] = k0;
+          keys[4 * j + 1] = k1;
+          keys[4 * j + 2] = k2;
+          keys[4 * j + 3] = k3;
+          top2_add(t1, t2, k0);
+          top2_add(t1, t2, k1);
+          top2_add(t1, t2, k2);
+          top2_add(t1, t2, k3);
+        }
+        for (int i = 4 * n4 + tid; i < len; i += T) {
+          const u64 k = pack_key(row_max[lo + i], lex_rank[lo + i], lo + i);
+          keys[i] = k;
+          top2_add(t1, t2, k);
+        }
+      } else {
+        for (int i = tid; i < len; i += T) top2_add(t1, t2, keys[i]);
       }
-      for (int i = 4 * n4 + tid; i < len; i += T) {
-        const u64 k = pack_key(row_max[lo + i], lex_rank[lo + i], lo + i);
-        keys[i] = k;
-        top2_add(t1, t2, k);
-      }
-    } else {
-      for (int i = tid; i < len; i += T) top2_add(t1, t2, keys[i]);
-    }
-    block_top2(t1, t2, red);
-    if (tid == 0) {
-      pub_top1 = t1;
-      pub_top2 = t2;
-    }
-    const long long t_sync = global_ns();
-    cluster.sync();
-    if (rounds == 1) ns_barrier = global_ns() - t_sync;
-    // Lane c of every warp holds CTA c's top two.
-    u64 k1 = 0, k2 = 0;
-    if (lane < ctas) {
-      k1 = *cluster.map_shared_rank(&pub_top1, lane);
-      k2 = *cluster.map_shared_rank(&pub_top2, lane);
-    }
-    ns_bound += global_ns() - t_phase;
-    t_phase = global_ns();
-    if (key_count(warp_max(k1)) < thr) {  // no bound reaches min_frequency
-      stop = true;
-      break;
-    }
-    const bool cand = k1 > best && key_count(k1) > 0;
-    verified += __popc(__ballot_sync(kFullMask, cand));
-    const u64 mine = __shfl_sync(kFullMask, k1, rank);
-    if (mine > best && key_count(mine) > 0) {
-      const int r = key_id(mine);
-      const u64 e = verify_row(counts + static_cast<size_t>(r) * V, lex_rank,
-                               n, red);
+      block_top2(t1, t2, red);
       if (tid == 0) {
-        const u64 exact =
-            (static_cast<u64>(static_cast<unsigned>(key_count(e))) << 32) |
-            (mine & 0xFFFFFFFFull);
-        row_max[r] = key_count(e);
-        keys[r - lo] = exact;
-        pub_exact = exact;
-        pub_col = key_id(e);
+        pub_top1 = t1;
+        pub_top2 = t2;
       }
-    } else if (tid == 0) {
-      pub_exact = 0;
-    }
-    cluster.sync();
-    u64 e = 0;
-    int col = 0;
-    if (cand) {
-      e = *cluster.map_shared_rank(&pub_exact, lane);
-      col = *cluster.map_shared_rank(&pub_col, lane);
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const u64 oe = __shfl_xor_sync(kFullMask, e, o);
-      const int oc = __shfl_xor_sync(kFullMask, col, o);
-      if (oe > e) {
-        e = oe;
-        col = oc;
+      const long long t_sync = global_ns();
+      cluster.sync();
+      if (rounds == 1) ns_barrier = global_ns() - t_sync;
+      // Lane c of every warp holds CTA c's top two.
+      u64 k1 = 0, k2 = 0;
+      if (lane < ctas) {
+        k1 = *cluster.map_shared_rank(&pub_top1, lane);
+        k2 = *cluster.map_shared_rank(&pub_top2, lane);
       }
+      ns_bound += global_ns() - t_phase;
+      t_phase = global_ns();
+      if (key_count(warp_max(k1)) < thr) {  // no bound reaches min_frequency
+        stop = true;
+        break;
+      }
+      const bool cand = k1 > best && key_count(k1) > 0;
+      verified += __popc(__ballot_sync(kFullMask, cand));
+      const u64 mine = __shfl_sync(kFullMask, k1, rank);
+      if (mine > best && key_count(mine) > 0) {
+        const int r = key_id(mine);
+        const u64 e = verify_row(counts + static_cast<size_t>(r) * V, lex_rank,
+                                 n, red);
+        if (tid == 0) {
+          const u64 exact =
+              (static_cast<u64>(static_cast<unsigned>(key_count(e))) << 32) |
+              (mine & 0xFFFFFFFFull);
+          row_max[r] = key_count(e);
+          keys[r - lo] = exact;
+          pub_exact = exact;
+          pub_col = key_id(e);
+        }
+      } else if (tid == 0) {
+        pub_exact = 0;
+      }
+      cluster.sync();
+      u64 e = 0;
+      int col = 0;
+      if (cand) {
+        e = *cluster.map_shared_rank(&pub_exact, lane);
+        col = *cluster.map_shared_rank(&pub_col, lane);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        const u64 oe = __shfl_xor_sync(kFullMask, e, o);
+        const int oc = __shfl_xor_sync(kFullMask, col, o);
+        if (oe > e) {
+          e = oe;
+          col = oc;
+        }
+      }
+      if (e > best) {
+        best = e;
+        best_col = col;
+      }
+      ns_verify += global_ns() - t_phase;
+      t_phase = global_ns();
+      // Accept when best beats the largest bound key of the rows not
+      // verified this round.
+      if (best >= warp_max(cand ? k2 : k1)) break;
     }
-    if (e > best) {
-      best = e;
-      best_col = col;
-    }
-    ns_verify += global_ns() - t_phase;
-    t_phase = global_ns();
-    // Accept when best beats the largest bound key of the rows not
-    // verified this round.
-    if (best >= warp_max(cand ? k2 : k1)) break;
+    if (!stop && key_count(best) < thr) stop = true;
+    a = key_id(best);
+    b = best_col;
   }
-  if (!stop && key_count(best) < thr) stop = true;
-  const int a = key_id(best), b = best_col;
 
   if (out != nullptr || stop) {
     if (rank == 0 && tid == 0) {
@@ -502,6 +533,9 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         out[kOutRounds] = rounds;
         out[kOutVerified] = verified;
         out[kOutCtas] = ctas;
+      } else if (replay) {
+        scalars[kStopped] = 1;
+        if (bad_record) scalars[kDiverged] = step + 1;
       } else {
         scalars[kStopped] = 1;
         stats[kRounds] += rounds;
@@ -592,6 +626,11 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   }
   if (rank == 0 && tid == 0) {
     const int c = grow ? n : eq;
+    if (replay && c != merges[3 * static_cast<size_t>(step) + 2]) {
+      // The record disagrees with this vocab: stop before the apply.
+      scalars[kDiverged] = step + 1;
+      scalars[kStopped] = 1;
+    }
     merges[3 * static_cast<size_t>(step)] = a;
     merges[3 * static_cast<size_t>(step) + 1] = b;
     merges[3 * static_cast<size_t>(step) + 2] = c;
@@ -600,18 +639,26 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     scalars[kSelC] = c;
     scalars[kNextId] = n + (grow ? 1 : 0);
     scalars[kNumDone] += 1;
-    stats[kRounds] += rounds;
-    stats[kVerified] += verified;
-    stats[kNsBound] += static_cast<int>(ns_bound);
-    stats[kNsVerify] += static_cast<int>(ns_verify);
-    stats[kNsCompare] += static_cast<int>(ns_compare);
-    stats[kNsBarrier] += static_cast<int>(ns_barrier);
+    if (replay) {
+      stats[kReplayed] += 1;
+    } else {
+      stats[kRounds] += rounds;
+      stats[kVerified] += verified;
+      stats[kNsBound] += static_cast<int>(ns_bound);
+      stats[kNsVerify] += static_cast<int>(ns_verify);
+      stats[kNsCompare] += static_cast<int>(ns_compare);
+      stats[kNsBarrier] += static_cast<int>(ns_barrier);
+    }
   }
   cluster_wait();
   if (rank == 0 && tid == 0) {
     const long long now = global_ns();
-    stats[kNsVocab] += static_cast<int>(now - t_phase);
-    stats[kNsStep] += static_cast<int>(now - t_step);
+    if (replay) {
+      stats[kNsReplay] += static_cast<int>(now - t_step);
+    } else {
+      stats[kNsVocab] += static_cast<int>(now - t_phase);
+      stats[kNsStep] += static_cast<int>(now - t_step);
+    }
   }
 }
 
@@ -681,7 +728,7 @@ cudaError_t launch_step(int ctas, size_t smem, cudaStream_t st,
                         const int* counts, int* row_max, int* lex_rank,
                         int* token_bytes, int* token_len, int* merges,
                         int* scalars, int* stats, int* out, int V, int L,
-                        int step, int min_frequency) {
+                        int step, int min_frequency, int replay_until) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(kStepThreads);
@@ -698,7 +745,7 @@ cudaError_t launch_step(int ctas, size_t smem, cudaStream_t st,
   cfg.numAttrs = 2;
   return cudaLaunchKernelEx(&cfg, step_kernel, counts, row_max, lex_rank,
                             token_bytes, token_len, merges, scalars, stats,
-                            out, V, L, step, min_frequency);
+                            out, V, L, step, min_frequency, replay_until);
 }
 
 cudaError_t launch_apply(int n_blocks, cudaStream_t st, int* words,
@@ -734,13 +781,14 @@ extern "C" int yabpe_hbm_cluster_ctas(int V, int L) {
   return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
-// Runs merge steps [step_begin, step_end) on `stream`, without syncing.
-// Returns the first launch error (a cudaError_t), 0 when all launched.
+// Runs merge steps [step_begin, step_end) on `stream`, without syncing;
+// the steps below `replay_until` replay their rows of `merges`. Returns the
+// first launch error (a cudaError_t), 0 when all launched.
 extern "C" int yabpe_hbm_merge_chunk(
     int* words, const int* freqs, int* counts, int* row_max,
     int* token_bytes, int* token_len, int* lex_rank, int* merges,
     int* scalars, int* stats, int N, int W, int V, int L, int step_begin,
-    int step_end, int min_frequency, void* stream) {
+    int step_end, int min_frequency, int replay_until, void* stream) {
   if (W > kMaxWidth || W < 2 || V > 0xFFFF || V < 1 || L < 4 || L % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -752,7 +800,7 @@ extern "C" int yabpe_hbm_merge_chunk(
   for (int step = step_begin; step < step_end; ++step) {
     err = launch_step(ctas, smem, st, counts, row_max, lex_rank, token_bytes,
                       token_len, merges, scalars, stats, nullptr, V, L, step,
-                      min_frequency);
+                      min_frequency, replay_until);
     if (err == cudaSuccess && n_blocks > 0)
       err = launch_apply(n_blocks, st, words, freqs, counts, row_max, scalars,
                          N, W, V);
@@ -774,6 +822,6 @@ extern "C" int yabpe_hbm_select(const int* counts, int* row_max,
   if (err == cudaSuccess)
     err = launch_step(ctas, smem, static_cast<cudaStream_t>(stream), counts,
                       row_max, lex_rank, nullptr, nullptr, nullptr, scalars,
-                      nullptr, out, V, 4, 0, min_frequency);
+                      nullptr, out, V, 4, 0, min_frequency, 0);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

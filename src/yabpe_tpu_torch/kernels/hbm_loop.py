@@ -13,7 +13,9 @@ The parts that live here:
 - :func:`hbm_merge_chunk`, the wrapper: it runs one chunk of merge steps
   and updates the state **in place**. For CUDA tensors it launches the
   kernels (built on first use) and raises on any launch error; for CPU
-  tensors, and only for them, it runs the plain twin;
+  tensors, and only for them, it runs the plain twin. Steps below
+  ``replay_until`` replay their preloaded rows of ``merges`` (checkpoint
+  resume: the TPU kernel's replay mode) in place of the select;
 - :func:`hbm_merge_chunk_reference`, the plain twin in torch ops. It is
   deliberately independent of the kernel's bookkeeping: its step,
   :func:`plain_merge_steps` (shared with the twin of
@@ -47,6 +49,7 @@ from yabpe_tpu_torch.core import lexkey
 NEXT_ID = 0
 STOPPED = 1
 NUM_DONE = 2
+DIVERGED = 6  # 1 + the replayed step whose record the vocab disagrees with
 N_SCALARS = 8
 
 # Layout of ``HbmState.stats``: counters that the kernel adds to and the
@@ -62,7 +65,9 @@ STAT_NS_COMPARE = 4  # merged bytes, dedup compare and lex rank
 STAT_NS_VOCAB = 5  # vocab update and the record
 STAT_NS_STEP = 6  # the whole step kernel
 STAT_NS_BARRIER = 7  # the first round's first cluster barrier alone
-N_STATS = 8
+STAT_REPLAYED = 8  # replayed steps, which add to none of the slots above
+STAT_NS_REPLAY = 9  # the step kernel of the replayed steps, whole
+N_STATS = 10
 
 #: Longest word (in symbols) the apply kernel takes.
 MAX_WORD_WIDTH = 64
@@ -88,10 +93,12 @@ class HbmState:
         token_len: [V] token byte lengths.
         lex_rank: [V] dense lex rank among live tokens, -1 for free ids.
         merges: [M, 3] (left, right, new id) per step, -1 where not taken.
-        scalars: [8] next_id, stopped, num_done, then per-step temporaries.
-        stats: [8] the kernel's counters (verify rounds, rows verified,
-            the step kernel's nanoseconds by phase: ``STAT_*``); the twin
-            leaves them as they are.
+        scalars: [8] next_id, stopped, num_done, then per-step temporaries
+            and ``DIVERGED``.
+        stats: [10] the kernel's counters (verify rounds, rows verified,
+            the step kernel's nanoseconds by phase, the replayed steps and
+            their nanoseconds: ``STAT_*``); the twin leaves them as they
+            are.
     """
 
     words: torch.Tensor
@@ -153,9 +160,17 @@ def hbm_merge_chunk(
     chunk_size: int,
     num_merges: int,
     min_frequency: int,
+    replay_until: int = 0,
 ) -> None:
     """Run merge steps [chunk_start, chunk_start + chunk_size), capped at
     ``num_merges``, updating ``state`` in place.
+
+    A step below ``replay_until`` replays its row of ``state.merges``: the
+    pair comes from the record and everything but the select runs as in a
+    live step. A record with a negative left id stops the loop; one whose
+    ids are not live, or whose merged id differs from the vocab's, sets
+    ``scalars[DIVERGED]`` to the step + 1 and stops
+    (:func:`raise_on_divergence` reads it).
 
     CUDA tensors go through the CUDA kernels, on PyTorch's current stream
     and without a sync; CPU tensors through the twin. Any other device, a
@@ -170,6 +185,7 @@ def hbm_merge_chunk(
             chunk_size=chunk_size,
             num_merges=num_merges,
             min_frequency=min_frequency,
+            replay_until=replay_until,
         )
         return
     if device.type != "cuda":
@@ -189,10 +205,20 @@ def hbm_merge_chunk(
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.yabpe_hbm_merge_chunk(
             *(t.data_ptr() for t in state.tensors()),
-            n, w, v, byte_width, chunk_start, step_end, min_frequency, stream,
+            n, w, v, byte_width, chunk_start, step_end, min_frequency,
+            replay_until, stream,
         )
     _raise_on_error(lib, rc, "hbm_merge_chunk")
     LAUNCHES["hbm_merge_chunk"] += 1
+
+
+def raise_on_divergence(scalars: list[int]) -> None:
+    """Raise where a replayed step's record disagreed with the vocab
+    (``scalars``: the state's scalars, read on the host)."""
+    if scalars[DIVERGED]:
+        raise AssertionError(
+            f"checkpoint/vocab divergence at replayed step {scalars[DIVERGED] - 1}"
+        )
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
@@ -277,7 +303,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("hbm_loop")
     lib.yabpe_hbm_merge_chunk.restype = ctypes.c_int
     lib.yabpe_hbm_merge_chunk.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
     lib.yabpe_cuda_error_string.restype = ctypes.c_char_p
     lib.yabpe_cuda_error_string.argtypes = [ctypes.c_int]
@@ -299,6 +325,7 @@ def hbm_merge_chunk_reference(
     chunk_size: int,
     num_merges: int,
     min_frequency: int,
+    replay_until: int = 0,
     tally: dict[str, int] | None = None,
 ) -> None:
     """The plain twin of :func:`hbm_merge_chunk`, in torch ops on any
@@ -310,6 +337,7 @@ def hbm_merge_chunk_reference(
         chunk_size=chunk_size,
         num_merges=num_merges,
         min_frequency=min_frequency,
+        replay_until=replay_until,
         tally=tally,
     )
     state.row_max.copy_(state.counts.amax(dim=1))
@@ -322,6 +350,7 @@ def plain_merge_steps(
     chunk_size: int,
     num_merges: int,
     min_frequency: int,
+    replay_until: int = 0,
     tally: dict[str, int] | None = None,
 ) -> None:
     """Merge steps [chunk_start, chunk_start + chunk_size), capped at
@@ -333,11 +362,13 @@ def plain_merge_steps(
     greatest lex rank of the row, then of the column), stops when that
     count is below ``max(min_frequency, 1)``, grows the vocab (dedup and
     lex-rank insertion) and applies the merge to every word that holds
-    the pair.
+    the pair. A step below ``replay_until`` takes the pair from its row of
+    ``merges`` instead, as :func:`hbm_merge_chunk` says.
 
     ``tally``, when given, accumulates the bytes that the chunk's steps
     need at least (the least work a kernel could do): a row max and one
-    verified count row (8V per step), the words that hold the pair (read
+    verified count row (8V per live step; a replayed step reads neither),
+    the words that hold the pair (read
     and written, with their frequencies) and the distinct changed cells
     (read and written); and, under ``affected_words``, how many words
     the merges changed.
@@ -350,10 +381,19 @@ def plain_merge_steps(
     ids = torch.arange(v, device=s.counts.device)
     row_max = s.counts.amax(dim=1)
     for step in range(chunk_start, min(chunk_start + chunk_size, num_merges)):
-        a, b, best = exact_select(s.counts, row_max, s.lex_rank)
-        if best < max(min_frequency, 1):
-            scal[STOPPED] = 1
-            break
+        replay = step < replay_until
+        if replay:
+            a, b, record_c = s.merges[step].tolist()
+            if a >= 0 and not (a < next_id and 0 <= b < next_id):
+                scal[DIVERGED] = step + 1
+            if a < 0 or scal[DIVERGED]:
+                scal[STOPPED] = 1
+                break
+        else:
+            a, b, best = exact_select(s.counts, row_max, s.lex_rank)
+            if best < max(min_frequency, 1):
+                scal[STOPPED] = 1
+                break
 
         merged, merged_len = lexkey.concat_token_bytes(
             s.token_bytes, s.token_len, a, b
@@ -373,10 +413,13 @@ def plain_merge_steps(
             next_id += 1
         s.merges[step] = torch.tensor([a, b, c], dtype=torch.int32)
         num_done += 1
+        if replay and c != record_c:  # stop before the apply
+            scal[DIVERGED], scal[STOPPED] = step + 1, 1
+            break
 
         _apply_merge(s, a, b, c, tally)
         row_max = s.counts.amax(dim=1)
-        if tally is not None:
+        if tally is not None and not replay:  # a replayed step selects nothing
             tally["bytes"] = tally.get("bytes", 0) + 8 * v
 
     scal[NEXT_ID], scal[NUM_DONE] = next_id, num_done

@@ -3,8 +3,7 @@
 Counterpart of yabpe_tpu/train/config.py: field-for-field parity with the
 reference dataclass (its trainer.py:17-38), the engine knobs the port
 acts on so far, with the JAX package's defaults, and ``device``. The JAX
-package's other engine knobs (``count_strategy``, ``ingest_processes``,
-``checkpoint_every_chunks``) have no counterpart here. ``seed`` is kept
+package's ``ingest_processes`` has no counterpart here. ``seed`` is kept
 for interface compatibility; training is fully deterministic and never
 uses it.
 """
@@ -41,21 +40,33 @@ class BBPETrainerConfig:
         vocab_shards: vocabulary sharding; above 1 it is not ported yet
             and raises NotImplementedError.
         max_pair_table_bytes: guard rail for the dense [V, V] count table.
-        checkpoint_dir: checkpointed training; not ported yet, so a value
-            raises NotImplementedError.
+        count_strategy: how the fallback engines count pairs: "dense",
+            "matmul" (the JAX package's MXU layout of the same counts; it
+            must be exact, every possible count below 2^24, or raises
+            ValueError) or "auto" ("dense" here). The counts, and so the
+            merges, are the same.
+        checkpoint_dir: where checkpointed training saves its merge record
+            and resumes from (train/checkpoint.py, the JAX package's
+            files). A checkpointed run never takes the small-vocabulary
+            kernel.
+        checkpoint_every_chunks: save every this many chunks (epochs on
+            the data-sharded loop).
         use_fused_kernel: on the device route, run the merge loop on the
             small-vocabulary kernel (kernels/fused_loop.py) (True), never
-            (False), or when the problem fits its admission (None). True
-            past the admission raises ValueError. Results are identical
-            either way.
+            (False), or when the problem fits its admission and has no
+            word of more than 64 symbols (None). True past either raises
+            ValueError. Results are identical either way.
         use_native_loop: True runs the native C++ host merge loop; None or
             False runs the device merge loop. Results are identical either
             way.
         use_hbm_kernel: with ``data_shards`` > 1, True runs the
             data-sharded loop, whose word shards go through the replay
             kernel (kernels/replay_emit.py); a problem past its limits
-            raises ValueError. Not read with one shard, where the device
-            route is chosen by ``use_fused_kernel``.
+            raises ValueError. With one shard, the large-vocabulary kernel
+            (kernels/hbm_loop.py) runs problems within the kernels' limits
+            (None), always (True: past the limits, ValueError) or never
+            (False: the fallback engines run them). Results are identical
+            either way.
         spec_merges_per_round: merges per speculative epoch of the
             data-sharded loop; 0 or 1 means the default of 16.
         hbm_sharded_cps: cell-log capacity of the data-sharded loop, in
@@ -82,7 +93,9 @@ class BBPETrainerConfig:
     # 11 GB admits GPT-2-scale vocabularies (50,257 -> a 10.1 GB [V, V]
     # table) while still catching nonsense sizes.
     max_pair_table_bytes: int = 11 * 1024 * 1024 * 1024
+    count_strategy: str = "dense"
     checkpoint_dir: str | None = None
+    checkpoint_every_chunks: int = 4
     use_fused_kernel: bool | None = None
     use_native_loop: bool | None = None
     use_hbm_kernel: bool | None = None

@@ -82,8 +82,8 @@ def run_fused_merge_loop(
     Admission is ``hbm_driver.admit``'s: total pair mass below 2^31 (the
     int32 table's exactness), ids inside the 16-bit lex keys, words of at
     most MAX_WORD_WIDTH symbols and the state within the device's free
-    memory. ``on_chunk(state, steps_done)``, when given, sees the state
-    after every chunk.
+    memory. ``on_chunk(merges_ids, steps_done)``, when given, gets the merge
+    record after every chunk.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -4,6 +4,18 @@ Counterpart of yabpe_tpu/train/hbm_driver.py. It admits the problem,
 turns the numpy word table and base vocabulary into the kernel's state
 tensors (:func:`state_from_numpy`), and runs chunks until the merges are
 done or a step stops, with one host sync per chunk to read the stop flag.
+A resumed run starts at chunk 0 with the checkpoint's record preloaded
+and ``replay_until`` at its step count, as the JAX driver does (``:405``):
+the kernel replays those steps, then trains live.
+
+:func:`kernel_limits` is the admission as a predicate (the reason a
+problem is past the limits that K1, K2 and K3 share, or None), and
+:func:`admit` its raising form, so that the trainer's route and the
+driver's check never disagree (the rule of the JAX driver's
+``plan_buckets``, ``:121-124``). A problem past them goes to the fallback
+engines (train/bigvocab.py, train/incremental.py); one whose state does
+not fit the device's free memory raises on every route
+(:func:`check_memory`).
 
 The initial pair counts are a [b0, b0] corner (every initial symbol is a
 byte or special id below b0), computed with one numpy bincount and placed
@@ -27,18 +39,21 @@ from yabpe_tpu_torch.kernels.hbm_loop import (
     STOPPED,
     HbmState,
     hbm_merge_chunk,
+    raise_on_divergence,
 )
+from yabpe_tpu_torch.train.state import max_possible_pair_count
 
 #: Token ids travel in 16 bits inside the kernel's selection keys; the
 #: JAX kernel's cap (31 slabs of 2048 columns) is kept, which covers
 #: GPT-2's 50,257.
 MAX_VOCAB_CAP = 63488
 
-#: The roadmap item that will take problems past these limits.
-_BIGVOCAB = (
-    "the bigvocab engine (ROADMAP.md, queue 1 item 4: incremental and "
-    "large-vocab loop) is not ported yet"
-)
+#: Where the trainer sends problems past these limits.
+_ENGINES = "the trainer runs such problems on the bigvocab or incremental engine"
+
+
+class HbmKernelUnsupported(ValueError):
+    """The problem is past the merge kernels' limits."""
 
 
 def _round_up(x: int, m: int) -> int:
@@ -77,38 +92,52 @@ def state_bytes(n_words: int, width: int, vocab_cap: int, token_width: int,
     )
 
 
-def admit(table: WordTable, vocab_cap: int, num_merges: int,
-          token_width: int, device: torch.device) -> None:
-    """Raise NotImplementedError for a problem past the kernel's limits.
-
-    The limits: vocab <= MAX_VOCAB_CAP, word width <= MAX_WORD_WIDTH, total
-    pair mass below 2^31 (the count table's exactness), and the state
-    within the free memory of a CUDA device.
-    """
+def kernel_limits(table: WordTable, vocab_cap: int) -> str | None:
+    """Why the merge kernels cannot take this problem, or None where they
+    can: vocab <= MAX_VOCAB_CAP (ids travel in 16 bits), word width <=
+    MAX_WORD_WIDTH (the apply's per-thread arrays) and total pair mass
+    below 2^31 (the int32 count table's exactness)."""
     if vocab_cap > MAX_VOCAB_CAP or max(table.width, 2) > MAX_WORD_WIDTH:
-        raise NotImplementedError(
+        return (
             f"vocab {vocab_cap} / word width {table.width} exceed the merge "
-            f"kernel's limits (vocab <= {MAX_VOCAB_CAP}, width <= "
-            f"{MAX_WORD_WIDTH}); {_BIGVOCAB}"
+            f"kernels' limits (vocab <= {MAX_VOCAB_CAP}, width <= "
+            f"{MAX_WORD_WIDTH})"
         )
-    lengths = (table.words >= 0).sum(axis=1).astype(np.int64)
-    mass = int((np.maximum(lengths - 1, 0) * table.freqs.astype(np.int64)).sum())
+    mass = max_possible_pair_count(table)
     if mass >= 2**31:
-        raise NotImplementedError(
+        return (
             f"total pair mass {mass} reaches 2^31, past the int32 count "
-            f"table's exactness; {_BIGVOCAB}"
+            "table's exactness"
         )
+    return None
+
+
+def check_memory(need: int, device: torch.device) -> None:
+    """Raise RuntimeError where ``need`` bytes of merge state exceed the
+    free memory of a CUDA ``device``; every route needs the [V, V] table,
+    so none takes such a problem."""
     if device.type == "cuda":
-        need = state_bytes(
-            table.words.shape[0], max(table.width, 2), vocab_cap, token_width,
-            num_merges,
-        )
         free, _ = torch.cuda.mem_get_info(device)
         if need > free:
-            raise NotImplementedError(
-                f"merge state needs {need} bytes but {device} has {free} "
-                f"free; {_BIGVOCAB}"
+            raise RuntimeError(
+                f"merge state needs {need} bytes but {device} has {free} free"
             )
+
+
+def admit(table: WordTable, vocab_cap: int, num_merges: int,
+          token_width: int, device: torch.device) -> None:
+    """The raising form of :func:`kernel_limits` (HbmKernelUnsupported),
+    then :func:`check_memory` for the kernel's state."""
+    reason = kernel_limits(table, vocab_cap)
+    if reason is not None:
+        raise HbmKernelUnsupported(f"{reason}; {_ENGINES}")
+    check_memory(
+        state_bytes(
+            table.words.shape[0], max(table.width, 2), vocab_cap, token_width,
+            num_merges,
+        ),
+        device,
+    )
 
 
 def state_from_numpy(
@@ -135,7 +164,7 @@ def state_from_numpy(
     if freqs.max(initial=0) > np.iinfo(np.int32).max or corner.max(
         initial=0
     ) > np.iinfo(np.int32).max:
-        raise NotImplementedError(f"a count exceeds int32; {_BIGVOCAB}")
+        raise HbmKernelUnsupported(f"a count exceeds int32; {_ENGINES}")
     token_bytes, token_len = lexkey.initial_token_matrix(
         base_tokens, v, byte_width(words.shape[1], base_tokens)
     )
@@ -174,11 +203,18 @@ def run_hbm_merge_loop(
     chunk_size: int = 2048,
     device: str | torch.device = "cuda",
     on_chunk=None,
+    on_state=None,
+    resume: tuple[np.ndarray, int] | None = None,
 ) -> np.ndarray:
     """Run the merge loop on the kernel; returns [num_merges, 3] int32 ids.
 
-    ``on_chunk(state, steps_done)``, when given, sees the state after every
-    chunk (tests use it to recount the table).
+    ``resume=(merges_ids, steps_done)`` replays the record's first
+    ``steps_done`` merges through the kernel's replay mode, then trains on
+    from there; a record that disagrees with the vocab raises
+    AssertionError. ``on_chunk(merges_ids, steps_done)`` gets the merge
+    record as numpy after every chunk (the checkpoint saver);
+    ``on_state(state, steps_done)`` sees the state itself (tests recount
+    the table with it).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -192,19 +228,29 @@ def run_hbm_merge_loop(
         table.words, table.freqs, base_tokens, vocab_cap, device,
         num_merges=num_merges,
     )
+    replay = {}
+    if resume is not None:
+        merges_ids, steps_done = resume
+        until = max(0, min(int(steps_done), num_merges))
+        state.merges[:until] = torch.as_tensor(
+            np.asarray(merges_ids[:until], dtype=np.int32), device=device
+        )
+        replay = dict(replay_until=until)
     return run_chunks(
         hbm_merge_chunk, state, num_merges=num_merges,
         min_frequency=min_frequency, chunk_size=chunk_size, on_chunk=on_chunk,
+        on_state=on_state, **replay,
     )
 
 
 def run_chunks(
     merge_chunk, state, *, num_merges: int, min_frequency: int,
-    chunk_size: int, on_chunk=None,
+    chunk_size: int, on_chunk=None, on_state=None, **chunk_kw,
 ) -> np.ndarray:
-    """Call ``merge_chunk`` (a kernel wrapper) on ``state`` chunk by chunk
-    until the merges are done or a step stops, with one host sync per
-    chunk; returns the merge record, [num_merges, 3] int32 ids."""
+    """Call ``merge_chunk`` (a kernel wrapper, with ``chunk_kw``) on
+    ``state`` chunk by chunk until the merges are done or a step stops,
+    with one host sync per chunk (and a copy of the merge record for
+    ``on_chunk``); returns the merge record, [num_merges, 3] int32 ids."""
     chunk = max(1, min(chunk_size, num_merges))
     start = 0
     while start < num_merges:
@@ -214,11 +260,16 @@ def run_chunks(
             chunk_size=chunk,
             num_merges=num_merges,
             min_frequency=min_frequency,
+            **chunk_kw,
         )
         start += chunk
+        if on_state is not None:
+            on_state(state, min(start, num_merges))
+        scalars = state.scalars.tolist()  # the chunk's one host sync
+        raise_on_divergence(scalars)
         if on_chunk is not None:
-            on_chunk(state, min(start, num_merges))
-        if int(state.scalars[STOPPED]) != 0:  # the chunk's one host sync
+            on_chunk(state.merges[:num_merges].cpu().numpy(), min(start, num_merges))
+        if scalars[STOPPED]:
             break
     return state.merges[:num_merges].cpu().numpy()
 
@@ -226,7 +277,10 @@ def run_chunks(
 __all__ = [
     "MAX_VOCAB_CAP",
     "MAX_WORD_WIDTH",
+    "HbmKernelUnsupported",
     "admit",
+    "check_memory",
+    "kernel_limits",
     "byte_width",
     "initial_corner_counts",
     "run_chunks",

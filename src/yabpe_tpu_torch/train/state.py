@@ -1,10 +1,28 @@
-"""Vocabulary state of the merge loop, and the merge-record conversion.
+"""Training state of the merge loop in torch, its plain merge step, and
+the merge-record conversion.
 
-Counterpart of yabpe_tpu/train/state.py for what the port's drivers need
-outside the kernels: :class:`VocabState` (the token side of the JAX
-package's ``TrainState``: its fields without ``words`` and ``freqs``,
-which live in the kernels' word shards), :func:`vocab_update` (``:178``)
-and :func:`merges_to_bytes` (``:280``).
+Counterpart of yabpe_tpu/train/state.py:
+
+- :class:`VocabState` is the token side of the JAX package's
+  ``TrainState`` (its fields without ``words`` and ``freqs``, which the
+  kernels and the sharded loop keep in their own word shards), and
+  :func:`vocab_update` (``:178``) its maintenance;
+- :class:`TrainState` is the whole of it: words and frequencies beside a
+  :class:`VocabState`; :func:`init_state` builds it, :func:`merge_step`
+  and :func:`merge_chunk` run the reference-shaped step (full recount,
+  full-table select) on it, and the fallback engines
+  (train/incremental.py, train/bigvocab.py) step it through their own
+  count tables;
+- :func:`count_pairs`, :func:`max_possible_pair_count` and
+  :func:`resolve_count_strategy` are the JAX counting helpers, and
+  :func:`count_dtype` picks an int64 table where the pair mass reaches
+  2^31, past the int32 table's exactness;
+- :func:`merges_to_bytes` (``:280``).
+
+These are XLA code in the JAX package, not a Pallas kernel, so the port
+runs them as plain torch ops on the caller's device. A step reads nothing
+back to the host: a chunk's steps after a stop write nothing, gated by
+device flags, as the JAX chunk's are.
 """
 
 from __future__ import annotations
@@ -16,6 +34,10 @@ import torch
 
 from yabpe_tpu_torch.core import lexkey
 from yabpe_tpu_torch.core.vocab import Vocab
+from yabpe_tpu_torch.core.wordtable import WordTable
+from yabpe_tpu_torch.kernels.merge_apply import apply_pair_merge
+from yabpe_tpu_torch.kernels.pair_count import pair_counts_dense
+from yabpe_tpu_torch.kernels.select import select_best_pair
 
 
 @dataclass
@@ -143,6 +165,149 @@ def vocab_update(
     return new_sym
 
 
+@dataclass
+class TrainState:
+    """The JAX package's ``TrainState`` (``:41``), on one device.
+
+    Attributes:
+        words: [N, W] int32 padded symbol rows, updated by the merges.
+        freqs: [N] int32 word frequencies (constant).
+        vocab: the token table, the merge record and the step counters.
+    """
+
+    words: torch.Tensor
+    freqs: torch.Tensor
+    vocab: VocabState
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def init_state(
+    table: WordTable,
+    base_vocab: Vocab,
+    vocab_cap: int,
+    num_merges: int,
+    device: str | torch.device,
+) -> TrainState:
+    """The state before the first merge, on ``device``."""
+    if table.freqs.max(initial=0) > np.iinfo(np.int32).max:
+        raise ValueError("word frequency exceeds int32; corpus too large for v0")
+    base_tokens = list(base_vocab.tokens())
+    byte_width = _round_up(max(table.width, base_vocab.max_token_len(), 2), 8)
+    return TrainState(
+        words=torch.tensor(table.words, dtype=torch.int32, device=device),
+        freqs=torch.tensor(table.freqs, dtype=torch.int32, device=device),
+        vocab=VocabState.initial(base_tokens, vocab_cap, byte_width, num_merges, device),
+    )
+
+
+#: No pair count can exceed the corpus's total adjacent-position weight, so
+#: the JAX package's f32 one-hot matmul counts are exact strictly below this.
+MATMUL_EXACT_BOUND = 2**24
+
+
+def max_possible_pair_count(table: WordTable) -> int:
+    """Upper bound on any pair count: sum of freq * (word_len - 1)."""
+    lens = (table.words >= 0).sum(axis=1).astype(np.int64)
+    return int(np.dot(np.maximum(lens - 1, 0), table.freqs.astype(np.int64)))
+
+
+def count_dtype(table: WordTable) -> torch.dtype:
+    """int32 for the count table while every count stays below 2^31,
+    int64 past that (where the JAX package's int32 table would wrap)."""
+    return torch.int32 if max_possible_pair_count(table) < 2**31 else torch.int64
+
+
+def resolve_count_strategy(
+    requested: str, table: WordTable, vocab_cap: int, backend: str
+) -> str:
+    """Resolve ``count_strategy`` to "dense" or "matmul", as the JAX
+    package does: "matmul" must be exact (every possible count below
+    2^24) or raises ValueError; "auto" takes it only on a TPU at
+    vocab <= 2048, so never here. Both count the same table
+    (:func:`count_pairs`)."""
+    if requested == "dense":
+        return "dense"
+    bound = max_possible_pair_count(table)
+    exact = bound < MATMUL_EXACT_BOUND
+    if requested == "matmul":
+        if not exact:
+            raise ValueError(
+                f"count_strategy='matmul' is not exact for this corpus: the "
+                f"pair-count bound {bound} reaches the f32 accumulation "
+                f"limit {MATMUL_EXACT_BOUND}; use 'dense' or 'auto'"
+            )
+        return "matmul"
+    if requested == "auto":
+        profitable = backend == "tpu" and vocab_cap <= 2048
+        return "matmul" if (exact and profitable) else "dense"
+    raise ValueError(f"unknown count_strategy {requested!r}")
+
+
+def count_pairs(
+    words: torch.Tensor,
+    freqs: torch.Tensor,
+    vocab_cap: int,
+    strategy: str,
+    dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """The flat [V * V] pair-count table. "dense" and "matmul" give the
+    same counts: "matmul" is the TPU's MXU layout of them, so here both
+    are ``pair_counts_dense``."""
+    if strategy not in ("dense", "matmul"):
+        raise ValueError(
+            f"unknown count_strategy {strategy!r} (resolve 'auto' with "
+            "resolve_count_strategy first)"
+        )
+    return pair_counts_dense(words, freqs, vocab_cap, dtype)
+
+
+def merge_step(
+    state: TrainState,
+    step_index: int,
+    *,
+    vocab_cap: int,
+    min_frequency: int,
+    count_strategy: str = "dense",
+    dtype: torch.dtype = torch.int32,
+) -> None:
+    """One merge step, full recount and full-table select, **in place**.
+
+    A step after a stop writes nothing (``do`` is a device flag); the
+    caller runs only steps below ``num_merges``.
+    """
+    counts = count_pairs(state.words, state.freqs, vocab_cap, count_strategy, dtype)
+    left, right, best_count = select_best_pair(counts, state.vocab.lex_rank, vocab_cap)
+    stopped = state.vocab.stopped | (best_count < max(min_frequency, 1))
+    do = ~stopped
+    new_sym = vocab_update(state.vocab, left, right, do, stopped, step_index)
+    merged = apply_pair_merge(state.words, left, right, new_sym)
+    state.words = torch.where(do, merged, state.words)
+
+
+def merge_chunk(
+    state: TrainState,
+    chunk_start: int,
+    *,
+    vocab_cap: int,
+    min_frequency: int,
+    num_merges: int,
+    chunk_size: int,
+    count_strategy: str = "dense",
+    dtype: torch.dtype = torch.int32,
+) -> TrainState:
+    """Run merge steps [chunk_start, chunk_start + chunk_size), capped at
+    ``num_merges``, on ``state`` in place; returns it."""
+    for step in range(chunk_start, min(chunk_start + chunk_size, num_merges)):
+        merge_step(
+            state, step, vocab_cap=vocab_cap, min_frequency=min_frequency,
+            count_strategy=count_strategy, dtype=dtype,
+        )
+    return state
+
+
 def merges_to_bytes(
     merges_ids: np.ndarray, base_vocab: Vocab
 ) -> tuple[Vocab, list[tuple[bytes, bytes]]]:
@@ -171,4 +336,17 @@ def merges_to_bytes(
     return vocab, merges
 
 
-__all__ = ["VocabState", "merges_to_bytes", "vocab_update"]
+__all__ = [
+    "MATMUL_EXACT_BOUND",
+    "TrainState",
+    "VocabState",
+    "count_dtype",
+    "count_pairs",
+    "init_state",
+    "max_possible_pair_count",
+    "merge_chunk",
+    "merge_step",
+    "merges_to_bytes",
+    "resolve_count_strategy",
+    "vocab_update",
+]

@@ -9,18 +9,32 @@ validation). Routing, which in this slice of the port is explicit:
 - otherwise the device route on ``config.device``: with ``data_shards`` >
   1 and ``use_hbm_kernel=True``, the data-sharded loop
   (dist/hbm_sharded.py, the replay kernel kernels/replay_emit.py on every
-  word shard); with one shard, the small-vocabulary kernel
-  (kernels/fused_loop.py) for problems within its admission
-  (:meth:`BBPETrainer._should_use_fused`), the large-vocabulary kernel
-  (kernels/hbm_loop.py) for the rest.
+  word shard); with one shard, as the JAX trainer's
+  ``_run_single_device`` (``:329-444``) routes, in this order:
+  1. the small-vocabulary kernel K1 (kernels/fused_loop.py) for problems
+     within its admission and the kernels' limits, without
+     ``checkpoint_dir`` (:meth:`BBPETrainer._should_use_fused`);
+  2. the large-vocabulary kernel K2 (kernels/hbm_loop.py) for problems
+     within the kernels' limits (``hbm_driver.kernel_limits``: vocab <=
+     63,488, words of at most 64 symbols, pair mass below 2^31);
+  3. past them, the bigvocab engine (train/bigvocab.py) at vocab > 2048,
+  4. else the incremental engine (train/incremental.py); both are the JAX
+     package's XLA engines in torch ops, on the same device.
 
-Every route gives the same merges. The JAX package's crossover model was
-measured on a TPU and is not carried over; measurements on the GPU will
-set the default. The device route never falls back: no CUDA device, a
-failed build of the native scanner or of the kernel, or a problem past
-the kernel's limits raises; where the JAX trainer restarts a problem that
-the data-sharded loop rejects on its XLA sharded loop, which is not
-ported, this one lets the error rise.
+The route is chosen before the run and logged (``route`` keeps it); no
+kernel failure falls through to an engine. Every route gives the same
+merges. The JAX package's crossover model was measured on a TPU and is not
+carried over; measurements on the GPU will set the default. The device
+route never falls back to the CPU: no CUDA device, a failed build of the
+native scanner or of a kernel, or a state past the device's free memory
+raises; where the JAX trainer restarts a problem that the data-sharded
+loop rejects on its XLA sharded loop, which is not ported, this one lets
+the error rise.
+
+``checkpoint_dir`` saves the merge record every ``checkpoint_every_chunks``
+chunks and resumes from it (train/checkpoint.py) on K2 (its replay mode),
+the engines and the data-sharded loop; a checkpointed run never takes K1,
+as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -54,6 +68,9 @@ class BBPETrainer:
         #: The data-sharded loop's ``stats_out`` for the last train() that
         #: ran it (epochs, fallbacks, ...), else empty.
         self.loop_stats: dict = {}
+        #: The merge loop the last train() took: "oracle", "native", "K1",
+        #: "K2", "sharded", "bigvocab" or "incremental" ("" before any).
+        self.route: str = ""
 
     def train(self, files: Sequence[str | Path]) -> BBPEModel:
         """Train a BBPE model from one or more UTF-8 text files."""
@@ -62,6 +79,7 @@ class BBPETrainer:
         cfg = self.config
         self._check_config()
         self.loop_stats = {}
+        self.route = ""
 
         # Training owns this process's hot allocation path: opt in to the
         # arena-friendly glibc tuning here (NOT at library import).
@@ -104,12 +122,14 @@ class BBPETrainer:
 
         t0 = time.perf_counter()
         if cfg.backend == "numpy":
+            self.route = "oracle"
             vocab, merges = train_merges_oracle(
                 counter, cfg.special_tokens, cfg.vocab_size, cfg.min_frequency
             )
         elif cfg.use_native_loop:
             from yabpe_tpu_torch import native
 
+            self.route = "native"
             merges = (
                 native.train_host_raw(
                     blob, lens, counts, num_merges, cfg.min_frequency
@@ -170,11 +190,6 @@ class BBPETrainer:
                 "(use_hbm_kernel=True); the XLA sharded loop is not ported "
                 "yet (ROADMAP.md, queue 1 item 9: distributed)"
             )
-        if cfg.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir is not ported yet (ROADMAP.md, queue 1 "
-                "item 6: checkpoint and resume)"
-            )
 
     def _train_device(
         self, counter, base: Vocab
@@ -182,8 +197,6 @@ class BBPETrainer:
         import torch
 
         from yabpe_tpu_torch.train import state as train_state
-        from yabpe_tpu_torch.train.fused_driver import run_fused_merge_loop
-        from yabpe_tpu_torch.train.hbm_driver import run_hbm_merge_loop
 
         cfg = self.config
         device = torch.device(cfg.device)
@@ -205,12 +218,14 @@ class BBPETrainer:
                 "vocab_size"
             )
         table = WordTable.from_counter(counter)
+        resume, saver = self._checkpoint_hooks()
         if (cfg.data_shards or 1) > 1:
             self._check_hbm_sharded(table, vocab_cap)
             from yabpe_tpu_torch.dist.hbm_sharded import (
                 run_hbm_sharded_merge_loop,
             )
 
+            self._log_route("sharded")
             spec = cfg.spec_merges_per_round
             merges_ids = run_hbm_sharded_merge_loop(
                 table,
@@ -223,23 +238,100 @@ class BBPETrainer:
                 cps=cfg.hbm_sharded_cps,
                 device=device,
                 stats_out=self.loop_stats,
+                resume=resume,
+                on_chunk=saver,
             )
-            return train_state.merges_to_bytes(merges_ids, base)
-        run = (
-            run_fused_merge_loop
-            if self._should_use_fused(table, vocab_cap)
-            else run_hbm_merge_loop
-        )
-        merges_ids = run(
-            table,
-            base,
+        else:
+            merges_ids = self._run_single_device(
+                table, base, vocab_cap, num_merges, device, resume, saver
+            )
+        return train_state.merges_to_bytes(merges_ids, base)
+
+    def _run_single_device(
+        self, table: WordTable, base: Vocab, vocab_cap: int, num_merges: int,
+        device, resume, saver,
+    ) -> np.ndarray:
+        """One device: K1, K2, or past the kernels' limits the bigvocab or
+        the incremental engine, in the JAX trainer's order."""
+        from yabpe_tpu_torch.train import hbm_driver
+        from yabpe_tpu_torch.train import state as train_state
+
+        cfg = self.config
+        kw = dict(
             vocab_cap=vocab_cap,
             num_merges=num_merges,
             min_frequency=cfg.min_frequency,
             chunk_size=cfg.merge_chunk_size,
             device=device,
         )
-        return train_state.merges_to_bytes(merges_ids, base)
+        limits = hbm_driver.kernel_limits(table, vocab_cap)
+        if self._should_use_fused(table, vocab_cap, limits):
+            from yabpe_tpu_torch.train.fused_driver import run_fused_merge_loop
+
+            self._log_route("K1")
+            return run_fused_merge_loop(table, base, **kw)
+        if self._should_use_hbm(limits):
+            self._log_route("K2")
+            return hbm_driver.run_hbm_merge_loop(
+                table, base, resume=resume, on_chunk=saver, **kw
+            )
+
+        count_strategy = train_state.resolve_count_strategy(
+            cfg.count_strategy, table, vocab_cap, device.type
+        )
+        dtype = train_state.count_dtype(table)
+        hbm_driver.check_memory(
+            hbm_driver.state_bytes(
+                table.words.shape[0], max(table.width, 2), vocab_cap,
+                hbm_driver.byte_width(table.width, list(base.tokens())),
+                num_merges,
+            ) + (dtype.itemsize - 4) * vocab_cap * vocab_cap,
+            device,
+        )
+        engine = dict(resume=resume, on_chunk=saver, count_strategy=count_strategy, **kw)
+        if vocab_cap > 2048:
+            from yabpe_tpu_torch.train.bigvocab import run_bigvocab_merge_loop
+
+            self._log_route("bigvocab", limits)
+            return run_bigvocab_merge_loop(table, base, **engine)
+        from yabpe_tpu_torch.train.incremental import run_incremental_merge_loop
+
+        self._log_route("incremental", limits)
+        return run_incremental_merge_loop(table, base, **engine)
+
+    def _log_route(self, route: str, why: str | None = None) -> None:
+        self.route = route
+        _LOG.info(
+            "merge loop: %s%s", route,
+            f" (past the merge kernels' limits: {why})" if why else "",
+        )
+
+    def _checkpoint_hooks(self):
+        """(resume, saver) for checkpointed runs, (None, None) otherwise.
+
+        ``resume`` is the loaded (merges_ids, steps_done) tuple or None;
+        ``saver`` is an on_chunk callback that saves every
+        ``checkpoint_every_chunks`` calls.
+        """
+        cfg = self.config
+        if not cfg.checkpoint_dir:
+            return None, None
+        from yabpe_tpu_torch.train import checkpoint as ckpt
+
+        resume = ckpt.load_checkpoint(cfg.checkpoint_dir, cfg)
+        if resume is not None:
+            _LOG.info("resuming from checkpoint at merge %d", resume[1])
+        every = max(1, cfg.checkpoint_every_chunks)
+        chunks_seen = [0]
+
+        def saver(merges_ids, steps_done):
+            chunks_seen[0] += 1
+            if chunks_seen[0] % every == 0:
+                ckpt.save_checkpoint(
+                    cfg.checkpoint_dir, merges_ids, steps_done, cfg
+                )
+
+        return resume, saver
 
     def _check_hbm_sharded(self, table: WordTable, vocab_cap: int) -> None:
         """Raise ValueError for a problem past the data-sharded loop's
@@ -259,14 +351,19 @@ class BBPETrainer:
                 "word width <= 64, per-shard log plan)"
             )
 
-    def _should_use_fused(self, table: WordTable, vocab_cap: int) -> bool:
-        """Route a device problem to the small-vocabulary kernel.
+    def _should_use_fused(
+        self, table: WordTable, vocab_cap: int, limits: str | None
+    ) -> bool:
+        """Route a device problem to the small-vocabulary kernel K1.
 
         Counterpart of the JAX trainer's ``_should_use_fused``, with the
         same admission (``fused_applicable``, copied verbatim) so that both
-        packages send the same problems to this kernel. ``False`` never
-        takes it; ``True`` takes it or raises ValueError past the
-        admission. Unlike the JAX package, auto (``None``) does not ask
+        packages send the same problems to this kernel, and the kernels'
+        limits (``limits``, from ``hbm_driver.kernel_limits``): K1's apply
+        takes words of at most 64 symbols, where the TPU kernel takes any
+        width within its VMEM budget. ``False`` never takes it, nor does a
+        checkpointed run; ``True`` takes it or raises ValueError past
+        either limit. Unlike the JAX package, auto (``None``) does not ask
         for a TPU: there the test keeps the Pallas kernel off backends
         where it would run interpreted, while here the kernel is the
         device route's own, on the card or as its plain twin on the CPU.
@@ -274,7 +371,7 @@ class BBPETrainer:
         from yabpe_tpu_torch.train.fused_driver import fused_applicable
 
         cfg = self.config
-        if cfg.use_fused_kernel is False:
+        if cfg.use_fused_kernel is False or cfg.checkpoint_dir:
             return False
         fits = fused_applicable(
             int(table.words.shape[0]),
@@ -282,12 +379,34 @@ class BBPETrainer:
             vocab_cap,
             max(table.width, 2),
         )
-        if cfg.use_fused_kernel is True and not fits:
+        if cfg.use_fused_kernel is True:
+            if limits is not None:
+                raise ValueError(
+                    f"use_fused_kernel=True but {limits}: K1's counterpart "
+                    "caps words at 64 symbols (ROADMAP.md, queue 1 item 3: "
+                    "K1's word width)"
+                )
+            if not fits:
+                raise ValueError(
+                    "use_fused_kernel=True but the problem exceeds the "
+                    "kernel's VMEM budget"
+                )
+        return fits and limits is None
+
+    def _should_use_hbm(self, limits: str | None) -> bool:
+        """Route a device problem to the large-vocabulary kernel K2: where
+        it is within the kernels' limits, unless ``use_hbm_kernel`` is
+        False; ``True`` past them raises ValueError, as in the JAX
+        trainer (``:500-505``)."""
+        cfg = self.config
+        if cfg.use_hbm_kernel is False:
+            return False
+        if cfg.use_hbm_kernel is True and limits is not None:
             raise ValueError(
-                "use_fused_kernel=True but the problem exceeds the "
-                "kernel's VMEM budget"
+                f"use_hbm_kernel=True but the problem exceeds the HBM "
+                f"kernel's limits: {limits}"
             )
-        return fits
+        return limits is None
 
     def save(self, output_dir: str | Path) -> None:
         """Persist the trained model to disk (native latin-1 dialect)."""

@@ -356,3 +356,103 @@ def test_sharded_epoch_never_waits_on_the_host():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(p) >= 1 and not bool(cut) and int(inexact) == 0
+
+
+def _replay_pair(table: WordTable, vocab_cap: int, record: np.ndarray, replay_until: int):
+    """A kernel state and a twin state on the card, both with the first
+    ``replay_until`` rows of ``record`` preloaded as the resume driver
+    preloads them."""
+    base = list(Vocab.base(SPECIALS).tokens())
+    twin = hbm_driver.state_from_numpy(table.words, table.freqs, base, vocab_cap, "cuda")
+    twin.merges[:replay_until] = torch.as_tensor(record[:replay_until], device="cuda")
+    return twin.clone(), twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replay_until", [45, 100])
+def test_kernel_replay_matches_twin(replay_until):
+    """K2's replay mode against the twin's, from one state, at replay
+    points that are not chunk-aligned (chunks of 32): the state equal
+    after every chunk, the merges equal to the uninterrupted run's, the
+    replayed steps counted apart from the live ones."""
+    _need_cuda()
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    v = 600
+    num = v - len(Vocab.base(SPECIALS))
+    full = hbm_driver.run_hbm_merge_loop(
+        table, Vocab.base(SPECIALS), vocab_cap=v, num_merges=num, min_frequency=1,
+        chunk_size=32, device="cpu",
+    )
+    kern, twin = _replay_pair(table, v, full, replay_until)
+    for start in range(0, num, 32):
+        kw = dict(chunk_start=start, chunk_size=32, num_merges=num, min_frequency=1,
+                  replay_until=replay_until)
+        hbm_loop.hbm_merge_chunk_reference(twin, **kw)
+        hbm_loop.hbm_merge_chunk(kern, **kw)
+        torch.cuda.synchronize()
+        for name in TENSORS:
+            assert torch.equal(getattr(kern, name), getattr(twin, name)), (name, start)
+        assert torch.equal(kern.scalars[:3], twin.scalars[:3]), start
+        assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
+    assert np.array_equal(kern.merges[:num].cpu().numpy(), full)
+    assert int(kern.stats[hbm_loop.STAT_REPLAYED]) == replay_until
+    assert int(kern.scalars[hbm_loop.DIVERGED]) == 0
+
+
+@pytest.mark.cuda
+def test_kernel_replay_divergence_raises():
+    """A record whose merged id, or whose pair, disagrees with the vocab
+    sets the divergence flag where the twin sets it, and the driver
+    raises."""
+    _need_cuda()
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    base = Vocab.base(SPECIALS)
+    v, num = 600, 600 - len(base)
+    full = hbm_driver.run_hbm_merge_loop(
+        table, base, vocab_cap=v, num_merges=num, min_frequency=1, chunk_size=64,
+        device="cpu",
+    )
+    bad_id, bad_pair = full.copy(), full.copy()
+    bad_id[10, 2] += 1
+    bad_pair[10, 0] = v - 1
+    for record in (bad_id, bad_pair):
+        kern, twin = _replay_pair(table, v, record, 40)
+        kw = dict(chunk_start=0, chunk_size=64, num_merges=num, min_frequency=1, replay_until=40)
+        hbm_loop.hbm_merge_chunk_reference(twin, **kw)
+        hbm_loop.hbm_merge_chunk(kern, **kw)
+        assert torch.equal(kern.scalars[:3], twin.scalars[:3])
+        assert int(kern.scalars[hbm_loop.DIVERGED]) == int(twin.scalars[hbm_loop.DIVERGED]) == 11
+        for name in TENSORS:
+            assert torch.equal(getattr(kern, name), getattr(twin, name)), name
+        with pytest.raises(AssertionError, match="divergence at replayed step 10"):
+            hbm_driver.run_hbm_merge_loop(
+                table, base, vocab_cap=v, num_merges=num, min_frequency=1,
+                chunk_size=64, device="cuda", resume=(record, 40),
+            )
+
+
+@pytest.mark.cuda
+def test_engines_on_cuda_past_the_kernels(tmp_path):
+    """Words past 64 symbols train on the card through the incremental and
+    the bigvocab engines, with no merge kernel launched, to the native
+    loop's merges."""
+    _need_cuda()
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "wide_lines", Path(__file__).resolve().parent.parent / "scripts" / "wide_lines.py"
+    )
+    wide = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wide)
+    path = tmp_path / "wide.txt"
+    path.write_text((DATA / "sample.txt").read_text(encoding="utf-8") + "\n"
+                    + "\n".join(wide.wide_lines(60, 1)) + "\n", encoding="utf-8")
+    for vocab_size, route in ((320, "incremental"), (2300, "bigvocab")):
+        kw = dict(vocab_size=vocab_size, min_frequency=1, max_workers=1, special_tokens=[])
+        hbm_loop.LAUNCHES["hbm_merge_chunk"] = fused_loop.LAUNCHES["fused_merge_chunk"] = 0
+        trainer = BBPETrainer(BBPETrainerConfig(**kw, device="cuda"))
+        model = trainer.train([path])
+        assert trainer.route == route
+        assert hbm_loop.LAUNCHES["hbm_merge_chunk"] == fused_loop.LAUNCHES["fused_merge_chunk"] == 0
+        native = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True)).train([path])
+        assert model.merges == native.merges and model.vocab == native.vocab

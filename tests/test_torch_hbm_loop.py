@@ -87,7 +87,7 @@ def _run_port(jt, specials, vocab_size, min_freq, chunk):
     ids = hbm_driver.run_hbm_merge_loop(
         _port_table(jt), base, vocab_cap=vocab_size, num_merges=num,
         min_frequency=min_freq, chunk_size=chunk, device="cpu",
-        on_chunk=on_chunk,
+        on_state=on_chunk,
     )
     return ids, merges_to_bytes(ids, base)[1], chunks
 
@@ -211,25 +211,22 @@ def test_torch_lexkey_matches_jax():
 
 
 def test_admission_limits():
+    """The driver raises past the kernels' limits, for the reason that
+    ``kernel_limits`` gives the trainer's routing."""
     base = Vocab.base([])
     wide = WordTable.from_counter(Counter({b"x" * 70: 1}))
-    with pytest.raises(NotImplementedError, match="bigvocab"):
-        hbm_driver.run_hbm_merge_loop(
-            wide, base, vocab_cap=300, num_merges=44, min_frequency=1,
-            device="cpu",
-        )
     heavy = WordTable.from_counter(Counter({b"abc": 2**30}))
-    with pytest.raises(NotImplementedError, match="pair mass"):
-        hbm_driver.run_hbm_merge_loop(
-            heavy, base, vocab_cap=300, num_merges=44, min_frequency=1,
-            device="cpu",
-        )
     narrow = WordTable.from_counter(Counter({b"abc": 3}))
-    with pytest.raises(NotImplementedError, match="vocab"):
-        hbm_driver.run_hbm_merge_loop(
-            narrow, base, vocab_cap=70000, num_merges=10, min_frequency=1,
-            device="cpu",
-        )
+    for table, vocab_cap, what in [
+        (wide, 300, "width"), (heavy, 300, "pair mass"), (narrow, 70000, "vocab"),
+    ]:
+        assert what in hbm_driver.kernel_limits(table, vocab_cap)
+        with pytest.raises(hbm_driver.HbmKernelUnsupported, match=what):
+            hbm_driver.run_hbm_merge_loop(
+                table, base, vocab_cap=vocab_cap, num_merges=10,
+                min_frequency=1, device="cpu",
+            )
+    assert hbm_driver.kernel_limits(narrow, 300) is None
 
 
 def test_no_hidden_cpu():

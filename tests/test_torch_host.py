@@ -40,7 +40,11 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "yabpe_tpu_torch.pretok.ingest, yabpe_tpu_torch.kernels._build, "
         "yabpe_tpu_torch.kernels.fused_loop, yabpe_tpu_torch.train.fused_driver, "
         "yabpe_tpu_torch.tok, yabpe_tpu_torch.io.gpt2, "
-        "yabpe_tpu_torch.dist.hbm_sharded, yabpe_tpu_torch.kernels.replay_emit\n"
+        "yabpe_tpu_torch.dist.hbm_sharded, yabpe_tpu_torch.kernels.replay_emit, "
+        "yabpe_tpu_torch.kernels.merge_apply, yabpe_tpu_torch.kernels.pair_count, "
+        "yabpe_tpu_torch.kernels.select, yabpe_tpu_torch.train.state, "
+        "yabpe_tpu_torch.train.incremental, yabpe_tpu_torch.train.bigvocab, "
+        "yabpe_tpu_torch.train.checkpoint\n"
         "tok = yabpe_tpu_torch.BBPETokenizer("
         "{b'a': 0, b'b': 1, b' ': 2, b'ab': 3, b' ab': 4}, "
         "[(b'a', b'b'), (b' ', b'ab')], [])\n"

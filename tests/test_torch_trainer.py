@@ -134,7 +134,6 @@ def test_not_ported_configurations_raise(tmp_path):
     for kw, item in [
         (dict(data_shards=2), "item 9"),
         (dict(vocab_shards=2), "item 9"),
-        (dict(checkpoint_dir=str(tmp_path)), "item 6"),
     ]:
         cfg = BBPETrainerConfig(vocab_size=300, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=item):
