@@ -9,9 +9,11 @@ checkout of the repository. It imports nothing of JAX or of the JAX
 package. Phases, none of whose failures is caught:
 
 1. card: the device's name and power limit;
-2. build: nvcc builds csrc/hbm_loop.cu (K2) and csrc/fused_loop.cu (K1)
-   for sm_90a and g++ the native library, all three side by side; prints
-   the build time and the ptxas register and shared-memory lines;
+2. build: nvcc builds csrc/hbm_loop.cu (K2), csrc/fused_loop.cu (K1),
+   csrc/replay_emit.cu (K3) and the first designs of K1 and K3
+   (csrc/*_v1.cu, timed beside the redesigns as old_ms) for sm_90a, and
+   g++ the native library, all side by side; prints the build time and
+   the ptxas register and shared-memory lines;
 3. K2 against its twin: one 2048-step chunk of the large-vocabulary
    kernel and of its plain twin from one state, on the 5 MB realistic
    fixture at vocab 4096; merges, words, counts and the vocab tensors
@@ -34,8 +36,13 @@ package. Phases, none of whose failures is caught:
    large.txt at vocab 1024, min_frequency 2, in chunks of 200 steps (a
    chunk that does not divide the 767 merges), then the 5 MB TinyStories
    fixture at vocab 1000, min_frequency 1, in chunks of 256; after every
-   chunk the whole state must be exactly equal; each case's first chunk
-   is timed by CUDA events beside the bytes it needs at least;
+   chunk the whole state but row_max must be exactly equal and row_max at
+   least each row's max. The process's first K1 launch is timed apart
+   first, split into the library load, the function attributes, the
+   cluster-size query and the launch itself, beside the first design's
+   library load and first call; then every chunk is timed by
+   CUDA events (us per step early and late), the first one beside the
+   bytes it needs at least and the first design's time for it;
 6. the small-vocabulary main path: the settings of the JAX package's
    snapshot tests/_snapshots/test_train_bpe_special_tokens.pkl
    (TinyStories 5 MB, vocab 1000) through BBPETrainer(...).train(files)
@@ -51,15 +58,18 @@ package. Phases, none of whose failures is caught:
    word shards cut as dist/hbm_sharded.py cuts them:
    a. the replay kernel K3 (csrc/replay_emit.cu) against its twin on every
       shard from one state, with phase 4b's first 16 merges as the chain,
-      cps 64 and the loop's cps0: the words, the ok flags and every step's
-      net delta (summed by cell on the card) must be exactly equal; each
-      call timed by CUDA events beside the bytes it must move;
+      cps 64 and the loop's cps0, the kernel's outputs allocated over
+      memory filled with ids >= 0: the words, the ok flags, the cursors and
+      every step's net delta (read up to the cursor, summed by cell on the
+      card) must be exactly equal, and each call must be one launch and one
+      memset; each call timed by CUDA events beside the bytes it must move
+      and the first design's time for it;
    b. the sharded main path: BBPETrainer(...).train(files) with
-      data_shards=4 and use_hbm_kernel=True on the card, with K3's launch
-      count zeroed before and read after; the merges and vocab must equal
-      phase 4c's native loop; prints the merge seconds, epochs, commits
-      per epoch, fallbacks, peak device memory and the epochs' split into
-      select / replay / validate / commit;
+      data_shards=4 and use_hbm_kernel=True on the card, with K3's call,
+      launch and memset counts zeroed before and read after; the merges
+      and vocab must equal phase 4c's native loop; prints the merge
+      seconds, epochs, commits per epoch, fallbacks, peak device memory and
+      the epochs' split into select / replay / validate / commit;
 9. checkpoint and resume, and words past 64 symbols:
    a. K2's replay mode against its twin: from phase 3's starting state
       (5 MB realistic fixture, vocab 4096) with phase 3's first 1,000
@@ -90,7 +100,9 @@ package. Phases, none of whose failures is caught:
       chip time goes to 9b.
 
 Every number printed is from this run on this card; the last two lines
-are the kernels' JSON record and {"ok": true, "device": {...}}.
+are the kernels' JSON record and {"ok": true, "device": {...}}. K1's and
+K3's entries carry old_ms, the first design's time for the same call on
+the same inputs, and K3's calls beside its launches and memsets.
 """
 
 from __future__ import annotations
@@ -127,6 +139,26 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def per_call_ms(fn, reps: int, *, ahead: bool) -> tuple[float, object]:
+    """Milliseconds per call of ``fn()`` over ``reps`` calls by CUDA events,
+    and its last result. With ``ahead`` a 10 ms spin kernel runs first, so
+    that the host has queued every call before the first starts: the time
+    is the device's alone. Without it the calls run as the host issues
+    them, so the time is the larger of the host's and the device's."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if ahead:
+        torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
 
 
 def timed_chunk(fn, state, **kw) -> float:
@@ -271,10 +303,95 @@ def wide_words_run(label, files, vocab_cap, route, card):
     check(model.vocab == native_model.vocab, f"{label}: vocab differs from the native loop")
 
 
+def v1_library(name: str, entry: str, n_ptrs: int, n_ints: int):
+    """The first design's library (csrc/<name>_v1.cu): its C entry point
+    ``entry`` takes ``n_ptrs`` pointers, ``n_ints`` ints and the stream."""
+    import ctypes
+
+    from yabpe_tpu_torch.kernels import _build
+
+    lib = _build.load(f"{name}_v1")
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    return lib
+
+
+def v1_fused_chunk(state, *, chunk_start, chunk_size, num_merges, min_frequency):
+    """K1's first design (csrc/fused_loop_v1.cu: one cooperative grid, three
+    grid barriers a step) on a FusedState, row_max left alone."""
+    import torch
+
+    lib = v1_library("fused_loop", "yabpe_fused_v1_merge_chunk", 9, 7)
+    n, w = state.words.shape
+    v, byte_width = state.token_bytes.shape
+    slots = torch.empty(lib.yabpe_fused_v1_slots_bytes(), dtype=torch.uint8, device="cuda")
+    tensors = (state.words, state.freqs, state.counts, state.token_bytes, state.token_len,
+               state.lex_rank, state.merges, state.scalars)
+    rc = lib.yabpe_fused_v1_merge_chunk(
+        *(t.data_ptr() for t in tensors), slots.data_ptr(), n, w, v, byte_width, chunk_start,
+        min(chunk_start + chunk_size, num_merges), min_frequency,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    check(rc == 0, f"fused_loop_v1: CUDA error {rc}")
+
+
+def k1_first_launch(table, base, vocab_cap, min_frequency, card):
+    """The process's first K1 launch, split: the library load (dlopen), the
+    function attributes, the cluster-size query and the first launch (host
+    clock to its end, and CUDA events around it); then the first design's
+    library load and first call (host clock). Returns the split in ms."""
+    import torch
+
+    from yabpe_tpu_torch.kernels import fused_loop
+    from yabpe_tpu_torch.train.fused_driver import fused_state_from_numpy
+
+    num = vocab_cap - len(base)
+    state = fused_state_from_numpy(table.words, table.freqs, base, vocab_cap, "cuda", num_merges=num)
+    n, v, byte_width = state.words.shape[0], vocab_cap, state.token_bytes.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_loop._library()
+    t1 = time.perf_counter()
+    fused_loop._prepare(torch.cuda.current_device())
+    t2 = time.perf_counter()
+    ctas = fused_loop.cluster_ctas(n, v, byte_width)
+    t3 = time.perf_counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fused_loop.fused_merge_chunk(state, chunk_start=0, chunk_size=200, num_merges=num,
+                                 min_frequency=min_frequency)
+    end.record()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    # the first design's first launch: its library load, then one call that
+    # sets its attributes, queries its occupancy and launches, as every call did
+    old = fused_state_from_numpy(table.words, table.freqs, base, vocab_cap, "cuda", num_merges=num)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    v1_library("fused_loop", "yabpe_fused_v1_merge_chunk", 9, 7)
+    t6 = time.perf_counter()
+    v1_fused_chunk(old, chunk_start=0, chunk_size=200, num_merges=num, min_frequency=min_frequency)
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    split = {
+        "library_load_ms": 1e3 * (t1 - t0), "attributes_ms": 1e3 * (t2 - t1),
+        "cluster_query_ms": 1e3 * (t3 - t2), "first_launch_host_ms": 1e3 * (t4 - t3),
+        "first_launch_device_ms": start.elapsed_time(end),
+        "old_library_load_ms": 1e3 * (t6 - t5), "old_first_call_host_ms": 1e3 * (t7 - t6),
+    }
+    print("k1_first_launch: " + " ".join(f"{k}={x}" for k, x in split.items())
+          + f" cluster_ctas={ctas} N={n} V={v} [{card}]")
+    del state, old
+    return split
+
+
 def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
-    """K1 and its twin chunk by chunk from one state, the whole state
-    exactly equal after every chunk; returns (kernel ms, twin ms, bytes
-    needed, max abs difference), of the first chunk."""
+    """K1 and its twin chunk by chunk from one state, the whole state but
+    row_max exactly equal after every chunk and row_max at least each
+    row's max; then the first chunk through K1's first design from the same
+    state. Returns (kernel ms, twin ms, bytes needed, max abs difference,
+    first design's ms), of the first chunk."""
     import torch
 
     from yabpe_tpu_torch.kernels import fused_loop
@@ -282,42 +399,83 @@ def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
 
     num = vocab_cap - len(base)
     twin = fused_state_from_numpy(table.words, table.freqs, base, vocab_cap, "cuda", num_merges=num)
+    start_state = twin.clone()
     kern = twin.clone()
     first = None
     err = 0
-    chunk_ms = []
+    chunk_ms, chunk_steps = [], []
     for start in range(0, num, chunk):
         kw = dict(chunk_start=start, chunk_size=chunk, num_merges=num, min_frequency=min_frequency)
         tally: dict[str, int] = {}
         plain_ms = timed_chunk(fused_loop.fused_merge_chunk_reference, twin, tally=tally, **kw)
+        done = int(kern.scalars[2])
         ms = timed_chunk(fused_loop.fused_merge_chunk, kern, **kw)
         chunk_ms.append(ms)
+        chunk_steps.append(int(kern.scalars[2]) - done)
         for name in ("words", "counts", "token_bytes", "token_len", "lex_rank", "merges"):
             a, b = getattr(kern, name), getattr(twin, name)
             diff = int((a.long() - b.long()).abs().max())
             err = max(err, diff)
             check(diff == 0, f"{label}: K1 and twin differ in {name} after the chunk at {start} (max {diff})")
         check(torch.equal(kern.scalars[:3], twin.scalars[:3]), f"{label}: scalars differ after the chunk at {start}")
+        check(bool((kern.row_max >= kern.counts.amax(dim=1)).all()),
+              f"{label}: row_max below a row max after the chunk at {start}")
         if first is None:
             first = (ms, plain_ms, tally.get("bytes", 0), int(kern.scalars[2]))
         if int(kern.scalars[1]):
             break
     ms, plain_ms, need, steps = first
+    # the first design on the first chunk, from the same state, warmed up once
+    kw = dict(chunk_start=0, chunk_size=chunk, num_merges=num, min_frequency=min_frequency)
+    v1_fused_chunk(start_state.clone(), **kw)
+    old = start_state.clone()
+    old_ms = timed_chunk(v1_fused_chunk, old, **kw)
+    check(torch.equal(old.merges[:steps], kern.merges[:steps]),
+          f"{label}: the first design's merges differ")
+    us = [1e3 * t / max(k, 1) for t, k in zip(chunk_ms, chunk_steps)]
     print(f"{label}: V={vocab_cap} N={table.words.shape[0]} W={table.words.shape[1]} "
           f"chunk={chunk} first_chunk_steps={steps} kernel_chunk_ms={ms} twin_chunk_ms={plain_ms} "
           f"kernel_us_per_step={1e3 * ms / max(steps, 1)} needed_bytes={need} "
+          f"old_kernel_chunk_ms={old_ms} old_kernel_us_per_step={1e3 * old_ms / max(steps, 1)} "
           f"merges={int(kern.scalars[2])} stopped={int(kern.scalars[1])} "
-          f"kernel_ms_by_chunk={chunk_ms} "
-          f"grid_blocks={fused_loop.grid_blocks(vocab_cap, kern.token_bytes.shape[1])} "
-          f"max_abs_err={err} (tolerance: exact) [{card}]")
-    return ms, plain_ms, need, err
+          f"kernel_ms_by_chunk={chunk_ms} steps_by_chunk={chunk_steps} us_per_step_by_chunk={us} "
+          f"cluster_ctas={fused_loop.cluster_ctas(table.words.shape[0], vocab_cap, kern.token_bytes.shape[1])} "
+          f"max_abs_err={err} (tolerance: exact; row_max a bound) [{card}]")
+    return ms, plain_ms, need, err, old_ms
+
+
+def v1_replay(words, freqs, chain, *, cps, cps0):
+    """K3's first design (csrc/replay_emit_v1.cu: a copy, three memsets of
+    the logs and one launch per chain step) on one shard; returns (words',
+    ok)."""
+    import torch
+
+    from yabpe_tpu_torch.kernels.replay_emit import LANES, log_rows
+
+    lib = v1_library("replay_emit", "yabpe_replay_v1_emit_chunk", 9, 5)
+    n, w = words.shape
+    k = chain.shape[0]
+    rows = log_rows(k, cps, cps0)
+    out = torch.empty_like(words)
+    logs = [torch.empty((rows, LANES), dtype=torch.int32, device="cuda") for _ in range(3)]
+    ok, cursor = (torch.empty(k, dtype=torch.int32, device="cuda") for _ in range(2))
+    rc = lib.yabpe_replay_v1_emit_chunk(
+        words.data_ptr(), freqs.data_ptr(), chain.data_ptr(), out.data_ptr(),
+        *(t.data_ptr() for t in logs), ok.data_ptr(), cursor.data_ptr(), n, w, k, cps, cps0,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    check(rc == 0, f"replay_emit_v1: CUDA error {rc}")
+    return out, ok
 
 
 def replay_vs_twin(table, chain, shards, cps, card):
     """K3 and its twin from one state on every shard of ``table``, cut as
-    the sharded loop cuts it; returns (kernel ms, twin ms, bytes to move,
-    max abs difference), each summed or maxed over the shards: one
-    epoch's replay. The kernel's ms is the mean of 5 calls."""
+    the sharded loop cuts it, the kernel's outputs allocated over memory
+    filled with ids >= 0; returns (kernel ms, twin ms, bytes to move, max
+    abs difference, first design's ms), each summed or maxed over the
+    shards: one epoch's replay. Each kernel ms is the device's time, the
+    mean of 5 calls queued ahead (per_call_ms); the calls' pace as the
+    host issues them is printed beside it."""
     import torch
 
     from yabpe_tpu_torch.dist.hbm_sharded import log_plan, shard_rows
@@ -333,7 +491,9 @@ def replay_vs_twin(table, chain, shards, cps, card):
     ]
     kw = dict(cps=cps, cps0=cps0)
     replay_emit.replay_emit_chunk(*parts[0], chain_t, **kw)  # first launch of the process
-    total_ms = total_plain_ms = total_need = err = 0
+    v1_replay(*parts[0], chain_t, **kw)
+    counters = (replay_emit.CALLS, replay_emit.LAUNCHES, replay_emit.MEMSETS)
+    total_ms = total_plain_ms = total_need = err = total_old_ms = 0
     for d, (words, freqs) in enumerate(parts):
         tally: dict[str, int] = {}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -343,35 +503,48 @@ def replay_vs_twin(table, chain, shards, cps, card):
         end.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
-        reps = 5  # warm: the outputs' blocks come from the allocator's cache
-        start.record()
-        for _ in range(reps):
-            kern = replay_emit.replay_emit_chunk(words, freqs, chain_t, **kw)
-        end.record()
+        # garbage where the outputs will be: ids >= 0 that a reader could take for cells
+        torch.full((16 << 20,), 0x01010101, dtype=torch.int32, device="cuda")
         torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / reps
+        before = [c["replay_emit_chunk"] for c in counters]
+        kern = replay_emit.replay_emit_chunk(words, freqs, chain_t, **kw)
+        ops = [c["replay_emit_chunk"] - b for c, b in zip(counters, before)]
+        check(ops == [1, 1, 1], f"replay shard {d}: calls, launches, memsets {ops}, expected one each")
+        # warm: the outputs' blocks come from the allocator's cache
+        call = lambda: replay_emit.replay_emit_chunk(words, freqs, chain_t, **kw)  # noqa: E731
+        call_v1 = lambda: v1_replay(words, freqs, chain_t, **kw)  # noqa: E731
+        ms = per_call_ms(call, 5, ahead=True)[0]
+        old_ms, old = per_call_ms(call_v1, 5, ahead=True)
+        paced_ms = per_call_ms(call, 5, ahead=False)[0]
+        old_paced_ms = per_call_ms(call_v1, 5, ahead=False)[0]
         diff = int((kern[0].long() - twin[0].long()).abs().max())
         check(diff == 0, f"replay shard {d}: K3 and twin differ in words (max {diff})")
         check(torch.equal(kern[4], twin[4]), f"replay shard {d}: ok flags differ")
+        check(torch.equal(kern[5], twin[5]), f"replay shard {d}: cursors differ")
+        check(torch.equal(old[0], twin[0]) and torch.equal(old[1], twin[4]),
+              f"replay shard {d}: the first design differs from the twin")
         for j, ok in enumerate(kern[4].tolist()):
             if not ok:
                 continue
-            a = replay_emit.step_net_delta(*kern[1:4], j, vocab_cap=32000, **kw)
-            b = replay_emit.step_net_delta(*twin[1:4], j, vocab_cap=32000, **kw)
+            a = replay_emit.step_net_delta(*kern[1:4], j, cursor=kern[5], vocab_cap=32000, **kw)
+            b = replay_emit.step_net_delta(*twin[1:4], j, cursor=twin[5], vocab_cap=32000, **kw)
             check(torch.equal(a[0], b[0]), f"replay shard {d}: step {j} cells differ")
             step_diff = int((a[1] - b[1]).abs().max()) if a[1].numel() else 0
             diff = max(diff, step_diff)
             check(step_diff == 0, f"replay shard {d}: step {j} net deltas differ")
         print(f"replay_vs_twin_100M_v32000 shard {d}: N={words.shape[0]} W={words.shape[1]} "
               f"K={len(chain)} cps={cps} cps0={cps0} ok={kern[4].tolist()} "
-              f"affected_words={tally['affected_words']} cells={tally['cells']} "
-              f"kernel_ms={ms} twin_ms={plain_ms} bytes={tally['bytes']} "
+              f"cursor={kern[5].tolist()} affected_words={tally['affected_words']} "
+              f"cells={tally['cells']} kernel_ms={ms} old_kernel_ms={old_ms} "
+              f"host_paced_ms={paced_ms} old_host_paced_ms={old_paced_ms} twin_ms={plain_ms} "
+              f"bytes={tally['bytes']} calls_launches_memsets={ops} "
               f"max_abs_err={diff} (tolerance: exact) [{card}]")
         total_ms += ms
+        total_old_ms += old_ms
         total_plain_ms += plain_ms
         total_need += tally["bytes"]
         err = max(err, diff)
-    return total_ms, total_plain_ms, total_need, err
+    return total_ms, total_plain_ms, total_need, err, total_old_ms
 
 
 def plain_ids(tok, text: str) -> list[int]:
@@ -428,9 +601,10 @@ def main() -> int:
 
     # ---- 2. build, the three kernels and the native library side by side
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         kernel_builds = [
-            pool.submit(_build.build, n) for n in ("hbm_loop", "fused_loop", "replay_emit")
+            pool.submit(_build.build, n)
+            for n in ("hbm_loop", "fused_loop", "replay_emit", "fused_loop_v1", "replay_emit_v1")
         ]
         native_build = pool.submit(native.load)
         built = [b.result() for b in kernel_builds]
@@ -520,12 +694,13 @@ def main() -> int:
 
     # ---- 5. K1 against its twin, chunk by chunk
     large = WordTable.from_counter(count_pretokens([REPO / "tests" / "data" / "large.txt"], SPECIALS))
+    k1_first = k1_first_launch(large, base, 1024, 2, card)
     fused_vs_twin("fused_vs_twin_large_v1024", large, base, 1024, 2, 200, card)
     t0 = time.perf_counter()
     tiny = WordTable.from_counter(count_pretokens([TINYSTORIES], SPECIALS, max_workers=1))
     print(f"tinystories word table: {tiny.num_words} words, width {tiny.width}, "
           f"{time.perf_counter() - t0:.3f} s (host)")
-    k1_ms, k1_plain_ms, k1_need, k1_err = fused_vs_twin(
+    k1_ms, k1_plain_ms, k1_need, k1_err, k1_old_ms = fused_vs_twin(
         "fused_vs_twin_tinystories_v1000", tiny, base, 1000, 1, 256, card
     )
     del large, tiny
@@ -585,8 +760,8 @@ def main() -> int:
               f"{len(snippets)} snippets and the 1 MB prefix")
 
     k1_bound_ms = k1_need / HBM_BYTES_PER_S * 1e3
-    print(f"fused_merge_chunk first chunk at V=1000: kernel {k1_ms} ms, twin {k1_plain_ms} ms, "
-          f"bound {k1_bound_ms} ms by bytes [{card}]")
+    print(f"fused_merge_chunk first chunk at V=1000: kernel {k1_ms} ms (first design {k1_old_ms} ms), "
+          f"twin {k1_plain_ms} ms, bound {k1_bound_ms} ms by bytes [{card}]")
 
     # ---- 8a. K3 against its twin on the 4 shards of the 100 MB table
     vocab_ids = big_native.vocab
@@ -594,7 +769,7 @@ def main() -> int:
         (vocab_ids[left], vocab_ids[right], vocab_ids[left + right])
         for left, right in big_native.merges[:16]
     ]
-    k3_ms, k3_plain_ms, k3_need, k3_err = replay_vs_twin(full, chain, 4, 64, card)
+    k3_ms, k3_plain_ms, k3_need, k3_err, k3_old_ms = replay_vs_twin(full, chain, 4, 64, card)
     k3_bound_ms = k3_need / HBM_BYTES_PER_S * 1e3
     del full
 
@@ -608,9 +783,12 @@ def main() -> int:
         **cfg, data_shards=4, use_hbm_kernel=True, device="cuda",
     ))
     torch.cuda.reset_peak_memory_stats()
-    replay_emit.LAUNCHES["replay_emit_chunk"] = 0
+    for counter in (replay_emit.CALLS, replay_emit.LAUNCHES, replay_emit.MEMSETS):
+        counter["replay_emit_chunk"] = 0
     sharded_model = trainer.train([corpus])
+    k3_calls = replay_emit.CALLS["replay_emit_chunk"]
     k3_launches = replay_emit.LAUNCHES["replay_emit_chunk"]
+    k3_memsets = replay_emit.MEMSETS["replay_emit_chunk"]
     peak = torch.cuda.max_memory_allocated()
     stats, loop = trainer.last_stats, trainer.loop_stats
     n = len(sharded_model.merges)
@@ -620,17 +798,19 @@ def main() -> int:
           f"merges_per_s={n / stats['merge_seconds']} epochs={epochs} "
           f"commits_per_epoch={n / epochs} fallbacks={loop['fallbacks']} "
           f"select_cuts={loop['select_cuts']} chain_inexact={loop['chain_inexact']} "
-          f"replay_launches={k3_launches} max_memory_allocated={peak} B [{card}]")
+          f"replay_calls={k3_calls} replay_launches={k3_launches} replay_memsets={k3_memsets} "
+          f"max_memory_allocated={peak} B [{card}]")
     total = sum(loop["phase_ms"].values())
     print("sharded main path per epoch: " + ", ".join(
         f"{name} {phase_ms / epochs} ms ({100 * phase_ms / total} %)"
         for name, phase_ms in loop["phase_ms"].items()
     ) + f"; loop {1e3 * loop['loop_seconds'] / epochs} ms by the host clock [{card}]")
     check(k3_launches > 0, "the sharded main path never launched replay_emit_chunk")
+    check(k3_launches == k3_calls == k3_memsets, "a replay call was not one launch and one memset")
     check(sharded_model.merges == big_native.merges, "sharded merges differ from the native loop")
     check(sharded_model.vocab == big_native.vocab, "sharded vocab differs from the native loop")
-    print(f"replay_emit_chunk, one epoch's chain over 4 shards at V=32000: kernel {k3_ms} ms, "
-          f"twin {k3_plain_ms} ms, bound {k3_bound_ms} ms by bytes [{card}]")
+    print(f"replay_emit_chunk, one epoch's chain over 4 shards at V=32000: kernel {k3_ms} ms "
+          f"(first design {k3_old_ms} ms), twin {k3_plain_ms} ms, bound {k3_bound_ms} ms by bytes [{card}]")
 
     # ---- 9a. K2's replay mode against its twin, phase 3's state and merges
     rp_ms, rp_plain_ms, rp_need, rp_steps, rp_err = k2_replay_vs_twin(
@@ -716,6 +896,8 @@ def main() -> int:
                 "launches": k1_launches,
                 "max_abs_err": k1_err,
                 "ms": k1_ms,
+                "old_ms": k1_old_ms,
+                "first_launch_ms": k1_first,
                 "plain_ms": k1_plain_ms,
                 "bound_ms": k1_bound_ms,
                 "bound_by": "bytes",
@@ -727,8 +909,11 @@ def main() -> int:
                 "source": "src/yabpe_tpu_torch/csrc/replay_emit.cu",
                 "replaces": "src/yabpe_tpu/kernels/replay_emit.py:82",
                 "launches": k3_launches,
+                "calls": k3_calls,
+                "memsets": k3_memsets,
                 "max_abs_err": k3_err,
                 "ms": k3_ms,
+                "old_ms": k3_old_ms,
                 "plain_ms": k3_plain_ms,
                 "bound_ms": k3_bound_ms,
                 "bound_by": "bytes",

@@ -114,13 +114,24 @@
 #include <stdint.h>
 
 #include "merge_apply.cuh"
+#include "select_keys.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using yabpe::kFullMask;
+using yabpe::key_count;
+using yabpe::key_id;
 using yabpe::kMaxWidth;
-using u64 = unsigned long long;
+using yabpe::max_u64;
+using yabpe::pack_key;
+using yabpe::stripe_rows;
+using yabpe::top2_add;
+using yabpe::top2_merge;
+using yabpe::u64;
+using yabpe::warp_max;
+using yabpe::warp_top2;
 
 enum Scalar : int {
   kNextId = 0,   // first free token id
@@ -155,28 +166,6 @@ enum Out : int {
 
 constexpr int kStepThreads = 256;
 constexpr int kApplyThreads = 256;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// (count, lex rank, id) as one key: a larger count wins, then a greater
-// lex rank. Counts are >= 0; an inactive slot (lex -1) ranks lowest.
-__device__ __forceinline__ u64 pack_key(int count, int lex, int idx) {
-  return (static_cast<u64>(static_cast<unsigned>(count)) << 32) |
-         (static_cast<u64>((lex + 1) & 0xFFFF) << 16) |
-         static_cast<u64>(idx & 0xFFFF);
-}
-
-__device__ __forceinline__ int key_count(u64 k) {
-  return static_cast<int>(k >> 32);
-}
-
-__device__ __forceinline__ int key_id(u64 k) {
-  return static_cast<int>(k & 0xFFFF);
-}
-
-// Rows a CTA owns: a multiple of 4, so every stripe starts 16-byte aligned.
-__host__ __device__ __forceinline__ int stripe_rows(int n, int ctas) {
-  return (((n + ctas - 1) / ctas) + 3) & ~3;
-}
 
 __device__ __forceinline__ long long global_ns() {
   long long t;
@@ -202,44 +191,9 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
 }
 
-__device__ __forceinline__ u64 max_u64(u64 x, u64 y) { return x > y ? x : y; }
-
-__device__ __forceinline__ u64 warp_max(u64 v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = max_u64(v, __shfl_xor_sync(kFullMask, v, o));
-  return v;
-}
-
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
   return v;
-}
-
-// Inserts k into the top two (t1 > t2; 0 = empty). Keys are distinct.
-__device__ __forceinline__ void top2_add(u64& t1, u64& t2, u64 k) {
-  if (k > t1) {
-    t2 = t1;
-    t1 = k;
-  } else if (k > t2) {
-    t2 = k;
-  }
-}
-
-__device__ __forceinline__ void top2_merge(u64& t1, u64& t2, u64 o1, u64 o2) {
-  if (o1 > t1) {
-    t2 = max_u64(t1, o2);
-    t1 = o1;
-  } else {
-    t2 = max_u64(t2, o1);
-  }
-}
-
-__device__ __forceinline__ void warp_top2(u64& t1, u64& t2) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const u64 o1 = __shfl_xor_sync(kFullMask, t1, o);
-    const u64 o2 = __shfl_xor_sync(kFullMask, t2, o);
-    top2_merge(t1, t2, o1, o2);
-  }
 }
 
 // Top two keys over the block; every thread gets them. `red` holds 66.

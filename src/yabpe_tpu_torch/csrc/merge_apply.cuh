@@ -5,7 +5,10 @@
 // -> c in place, compacts the word, and hands the pairs of the changed
 // window to a sink: old pairs -freq, new pairs +freq. The pairs outside
 // the window are the same before and after, so the window's cells carry
-// the word's whole net delta.
+// the word's whole net delta. Two forms: merge_word on a word in memory,
+// and plan_regs + merge_regs on a word held in registers (a fixed width
+// bucket, every index static), which emits the same cells in the same
+// order.
 //
 // Sinks. TableSink folds the cells into the [V, V] count table (K1, K2);
 // LogSink appends them to one step's cell log (K3). A sink has:
@@ -58,10 +61,12 @@ struct TableSink {
   }
 };
 
-// Appends cells (left, right, weight) to one step's log of `cap` slots.
-// reserve() takes a run of slots with one atomicAdd on the step's cursor;
-// a run that passes `cap` clears the step's ok flag and writes only the
-// slots below `cap`.
+// Appends cells (left, right, weight) to one step's log of `cap` slots,
+// writing only the slots below `cap`. reserve() takes a run of slots with
+// one atomicAdd on the step's cursor, and a run that passes `cap` clears
+// the step's ok flag; with `cursor` null the run was taken beforehand and
+// starts at `slot` (replay_emit.cu: a warp's words take one run, and the
+// flags come from the cursors).
 struct LogSink {
   int* left;
   int* right;
@@ -72,6 +77,7 @@ struct LogSink {
   int slot;
 
   __device__ __forceinline__ void reserve(int n) {
+    if (cursor == nullptr) return;
     slot = atomicAdd(cursor, n);
     if (slot + n > cap) *ok = 0;
   }
@@ -122,6 +128,80 @@ __device__ __forceinline__ void merge_word(int* w, int W, int f, int a, int b,
   for (int k = lo; k <= new_hi; ++k) sink.add(t[k], t[k + 1], f);
   for (int k = 0; k < m; ++k) w[k] = t[k];
   for (int k = m; k < n; ++k) w[k] = -1;
+}
+
+// A merge of (a, b) in a word held in registers, -1 padded to WB, planned
+// before it is made: the merges as a bit mask (a match is taken unless
+// the match before it was) and the word's length. a and b are ids >= 0,
+// so the padding never matches.
+struct RegsMerge {
+  unsigned long long take;  // 0: the word does not hold the pair
+  int n;
+
+  // The cells merge_regs hands its sink: the changed window's old pairs
+  // and new pairs (0 without a merge).
+  __device__ __forceinline__ int cells() const {
+    if (take == 0) return 0;
+    const int takes = __popcll(take);
+    const int first = __ffsll(static_cast<long long>(take)) - 1;
+    const int last = 63 - __clzll(static_cast<long long>(take));
+    const int lo = max(first - 1, 0);
+    return max(min(last + 1, n - 2) - lo + 1, 0) +
+           max(min(last - (takes - 1), n - takes - 2) - lo + 1, 0);
+  }
+};
+
+template <int WB>
+__device__ __forceinline__ RegsMerge plan_regs(const int (&w)[WB], int a,
+                                               int b) {
+  static_assert(WB <= 64, "the take mask is 64 bits");
+  RegsMerge m{0ull, 0};
+  bool prev = false;
+#pragma unroll
+  for (int k = 0; k < WB; ++k) {
+    m.n += w[k] >= 0;
+    if (k + 1 < WB) {
+      const bool t = !prev && w[k] == a && w[k + 1] == b;
+      m.take |= static_cast<unsigned long long>(t) << k;
+      prev = t;
+    }
+  }
+  return m;
+}
+
+// merge_word on a word held in registers, for a planned merge (m.take !=
+// 0): the same merge, the same window and the same cells in the same
+// order, with every array index static so that the word stays in
+// registers. The merges are applied from the right, each one a shift of
+// the tail by one.
+template <int WB, class Sink>
+__device__ __forceinline__ void merge_regs(int (&w)[WB], const RegsMerge& m,
+                                           int f, int c, Sink& sink) {
+  const int takes = __popcll(m.take);
+  const int first = __ffsll(static_cast<long long>(m.take)) - 1;
+  const int last = 63 - __clzll(static_cast<long long>(m.take));
+  const int lo = max(first - 1, 0);
+  const int old_hi = min(last + 1, m.n - 2);
+  const int new_hi = min(last - (takes - 1), m.n - takes - 2);  // the last merge's new place
+  sink.reserve(m.cells());
+#pragma unroll
+  for (int k = 0; k + 1 < WB; ++k)
+    if (k >= lo && k <= old_hi) sink.sub(w[k], w[k + 1], f);
+  sink.fence();
+  for (unsigned long long rest = m.take; rest != 0;) {
+    const int q = 63 - __clzll(static_cast<long long>(rest));
+    rest &= ~(1ull << q);
+#pragma unroll
+    for (int k = 0; k < WB; ++k) {
+      if (k == q)
+        w[k] = c;
+      else if (k > q)
+        w[k] = k + 1 < WB ? w[k + 1] : -1;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k + 1 < WB; ++k)
+    if (k >= lo && k <= new_hi) sink.add(w[k], w[k + 1], f);
 }
 
 }  // namespace yabpe

@@ -56,6 +56,7 @@ from yabpe_tpu_torch.dist.speculative import estimate_followup_2d
 from yabpe_tpu_torch.kernels.replay_emit import (
     max_log_rows,
     replay_emit_chunk,
+    step_live,
     step_slots,
 )
 from yabpe_tpu_torch.train.bigvocab import lazy_select_2d
@@ -269,6 +270,7 @@ def _validate(
     g_r = mesh.all_gather([o[2].view(-1) for o in outs])
     g_w = mesh.all_gather([o[3].view(-1) for o in outs])
     g_ok = mesh.all_gather([o[4] for o in outs])  # [S, k]
+    g_cursor = mesh.all_gather([o[5] for o in outs])  # [S, k]
     ok_all = (g_ok.amin(dim=0) > 0) & (okf > 0)
     device = okf.device
     valid = torch.ones((), dtype=torch.bool, device=device)
@@ -293,13 +295,14 @@ def _validate(
         stopped = stopped | (valid & true_stop)
         cut = cut | (valid & ~true_stop & ~exact)
         vocab_update(vocab, a_t, b_t, match, stopped, ptr + j)
+        # a step's cells are each shard's slots below its cursor; the
+        # kernel leaves the slots past them unwritten
         first, count = step_slots(j, cps, cps0)
-        lj = g_l[:, first : first + count].reshape(-1)
         tables.fold(
-            lj,
+            g_l[:, first : first + count].reshape(-1),
             g_r[:, first : first + count].reshape(-1),
             g_w[:, first : first + count].reshape(-1),
-            match & (lj >= 0),
+            match & step_live(g_cursor, j, cps=cps, cps0=cps0).reshape(-1),
         )
         p = p + match.to(torch.int32)
         valid = match

@@ -7,8 +7,8 @@ data-sharded merge loop (``dist/hbm_sharded.py``): each shard replays the
 epoch's speculative chain over its words in one call and, instead of
 folding the count deltas into a table, logs every changed-window cell in
 its step's cell log. The logs are what the shards exchange. The kernel is
-CUDA C++ in ``csrc/replay_emit.cu``; its design note is at the top of
-that file.
+CUDA C++ in ``csrc/replay_emit.cu``, one word-major launch per call; its
+design note is at the top of that file.
 
 Layout. The shard is the port's word table, ``words`` [N, W] int32 (-1
 padded) and ``freqs`` [N] int32, not the JAX package's packed i16 rows,
@@ -16,8 +16,11 @@ so every id below the vocabulary cap fits and there is no ``wide`` mode.
 The chain is [K, 3] int32 rows (a, b, c); a row with a < 0 is skipped.
 The logs keep the JAX units: three [cps0 + (K-1)*cps, 128] int32 arrays
 (left, right, weight); step 0 owns rows [0, cps0), step j > 0 rows
-[cps0 + (j-1)*cps, cps0 + j*cps); an empty slot has left = -1. ``ok[j]``
-is 0 where step j's cells passed its capacity.
+[cps0 + (j-1)*cps, cps0 + j*cps). ``cursor[j]`` is the number of slots
+step j took: its cells are its first ``min(cursor[j], capacity)`` slots,
+and the kernel leaves the slots past them unwritten (the JAX kernel and
+the twin clear them to left = -1). ``ok[j]`` is 0 where step j's cells
+passed its capacity.
 
 Three parts live here:
 
@@ -33,8 +36,10 @@ Three parts live here:
   kept verbatim as arithmetic so that the sharded loop sizes its logs as
   the JAX loop does.
 
-``LAUNCHES["replay_emit_chunk"]`` counts the wrapper's kernel launches
-(one per call that reaches the card).
+Counters, each a caller zeroes to count a run: ``CALLS`` the wrapper's
+calls that reach the card, ``LAUNCHES`` its kernel launches (one per such
+call) and ``MEMSETS`` its memsets (one of 2K ints per such call, zeroing
+``cursor`` and ``ok``).
 """
 
 from __future__ import annotations
@@ -46,11 +51,17 @@ import torch
 
 from yabpe_tpu_torch.kernels.hbm_loop import MAX_WORD_WIDTH, merge_rows
 
-#: Kernel launches by wrapper; a caller zeroes an entry to count a run.
+#: Wrapper calls, kernel launches and memsets that reached the card, by
+#: wrapper; a caller zeroes an entry to count a run.
+CALLS: dict[str, int] = {"replay_emit_chunk": 0}
 LAUNCHES: dict[str, int] = {"replay_emit_chunk": 0}
+MEMSETS: dict[str, int] = {"replay_emit_chunk": 0}
 
 #: Cells per log row.
 LANES = 128
+
+#: Longest chain a call takes (the kernel keeps the chain in shared memory).
+MAX_CHAIN_STEPS = 2048
 
 # ---- The JAX package's log plan (yabpe_tpu/kernels/replay_emit.py:48-79),
 # copied as arithmetic: the TPU kernel's VMEM budget, which the sharded
@@ -114,9 +125,13 @@ def _check(words, freqs, chain, cps, cps0) -> None:
             raise ValueError("words, freqs and chain must share one device")
     if cps <= 0 or cps % 8 or cps0 <= 0 or cps0 % 8:
         raise ValueError("cps/cps0 must be positive multiples of 8")
+    if chain.shape[0] > MAX_CHAIN_STEPS:
+        raise ValueError(f"the chain has more than {MAX_CHAIN_STEPS} steps")
 
 
 def _outputs(words, num_steps, cps, cps0):
+    """(words', log_l, log_r, log_w, flags): ``flags`` is [2K], cursor then
+    ok, so that one memset zeroes both."""
     rows = log_rows(num_steps, cps, cps0)
     kw = dict(dtype=torch.int32, device=words.device)
     return (
@@ -124,7 +139,7 @@ def _outputs(words, num_steps, cps, cps0):
         torch.empty((rows, LANES), **kw),
         torch.empty((rows, LANES), **kw),
         torch.empty((rows, LANES), **kw),
-        torch.empty((num_steps,), **kw),
+        torch.empty((2 * num_steps,), **kw),
     )
 
 
@@ -135,15 +150,17 @@ def replay_emit_chunk(
     *,
     cps: int = 64,
     cps0: int | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, ...]:
     """Apply ``chain`` to the shard, logging each step's delta cells.
 
-    Returns ``(words', log_l, log_r, log_w, ok)``: the shard after the
-    chain (a new tensor), the three [cps0 + (K-1)*cps, 128] logs and the
-    [K] flags. ``cps0`` defaults to 4 * cps, as in the JAX package. CUDA
-    tensors go through the CUDA kernel on PyTorch's current stream without
-    a sync; CPU tensors through the twin. Any other device, a build
-    failure or a launch failure raises.
+    Returns ``(words', log_l, log_r, log_w, ok, cursor)``: the shard after
+    the chain (a new tensor), the three [cps0 + (K-1)*cps, 128] logs, the
+    [K] flags and the [K] slot counts. Step j's cells are its first
+    ``min(cursor[j], capacity)`` slots; read nothing past them
+    (:func:`step_live`). ``cps0`` defaults to 4 * cps, as in the JAX
+    package. CUDA tensors go through the CUDA kernel on PyTorch's current
+    stream without a sync; CPU tensors through the twin. Any other device,
+    a build failure or a launch failure raises.
     """
     if cps0 is None:
         cps0 = 4 * cps
@@ -156,20 +173,21 @@ def replay_emit_chunk(
     lib = _library()
     n, w = words.shape
     k = chain.shape[0]
-    out = _outputs(words, k, cps, cps0)
-    cursor = torch.empty((k,), dtype=torch.int32, device=device)
+    *out, flags = _outputs(words, k, cps, cps0)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.yabpe_replay_emit_chunk(
             words.data_ptr(), freqs.data_ptr(), chain.data_ptr(),
-            *(t.data_ptr() for t in out), cursor.data_ptr(),
+            *(t.data_ptr() for t in out), flags.data_ptr(),
             n, w, k, cps, cps0, stream,
         )
     if rc != 0:
         msg = lib.yabpe_replay_error_string(rc).decode()
         raise RuntimeError(f"replay_emit_chunk: CUDA error {rc}: {msg}")
+    CALLS["replay_emit_chunk"] += 1
+    MEMSETS["replay_emit_chunk"] += 1
     LAUNCHES["replay_emit_chunk"] += 1
-    return out
+    return (*out, flags[k:], flags[:k])
 
 
 @functools.cache
@@ -179,7 +197,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("replay_emit")
     lib.yabpe_replay_emit_chunk.restype = ctypes.c_int
     lib.yabpe_replay_emit_chunk.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     lib.yabpe_replay_error_string.restype = ctypes.c_char_p
     lib.yabpe_replay_error_string.argtypes = [ctypes.c_int]
@@ -198,29 +216,34 @@ def replay_emit_chunk_reference(
     cps: int,
     cps0: int,
     tally: dict[str, int] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, ...]:
     """The plain twin of :func:`replay_emit_chunk`, in torch ops on any
     device; the shard it is given is left as it was.
 
     Each active step applies its merge with ``merge_rows(window=True)``
     and writes the changed window's cells to the step's slots in order; a
     step with more cells than slots gets ok = 0 and keeps only its first
-    cells.
+    cells. ``cursor[j]`` is the step's cell count; the slots past it are
+    cleared (left = right = -1, weight 0), as the JAX kernel leaves them.
 
     ``tally``, when given, accumulates the bytes that the call must move at
     least (under ``bytes``): the shard and the frequencies read once, the
-    new shard written once, the chain read and the logs and flags written
-    once; and, under ``affected_words`` and ``cells``, how many words the
-    chain changed and how many cells it logged.
+    new shard written once, the chain read, the logged cells (three ints
+    each) and the flags and cursors written once; and, under
+    ``affected_words`` and ``cells``, how many words the chain changed and
+    how many cells it logged.
     """
-    out_words, log_l, log_r, log_w, ok = _outputs(words, chain.shape[0], cps, cps0)
+    num_steps = chain.shape[0]
+    out_words, log_l, log_r, log_w, flags = _outputs(words, num_steps, cps, cps0)
+    ok, cursor = flags[num_steps:], flags[:num_steps]
     out_words.copy_(words)
     log_l.fill_(-1)
     log_r.fill_(-1)
     log_w.zero_()
     ok.fill_(1)
+    cursor.zero_()
     flat = (log_l.view(-1), log_r.view(-1), log_w.view(-1))
-    affected = cells = 0
+    affected = cells = kept_cells = 0
     for j, (a, b, c) in enumerate(chain.tolist()):
         if a < 0:
             continue
@@ -230,6 +253,7 @@ def replay_emit_chunk_reference(
         step_cells, n = applied
         first, cap = step_slots(j, cps, cps0)
         count = step_cells[0].numel()
+        cursor[j] = count
         if count > cap:
             ok[j] = 0
         kept = min(count, cap)
@@ -237,15 +261,25 @@ def replay_emit_chunk_reference(
             log[first : first + kept] = values[:kept]
         affected += n
         cells += count
+        kept_cells += kept
     if tally is not None:
         moved = (
             8 * words.numel() + 4 * freqs.numel() + 4 * chain.numel()
-            + 12 * log_l.numel() + 4 * ok.numel()
+            + 12 * kept_cells + 4 * flags.numel()
         )
         tally["bytes"] = tally.get("bytes", 0) + moved
         tally["affected_words"] = tally.get("affected_words", 0) + affected
         tally["cells"] = tally.get("cells", 0) + cells
-    return out_words, log_l, log_r, log_w, ok
+    return out_words, log_l, log_r, log_w, ok, cursor
+
+
+def step_live(cursor: torch.Tensor, step: int, *, cps: int, cps0: int) -> torch.Tensor:
+    """[count] bool over step ``step``'s slots (``step_slots``): True for
+    the slots below ``min(cursor[step], capacity)``, the step's cells.
+    ``cursor`` is [K], or [S, K] for S shards' logs, giving [S, count]."""
+    count = step_slots(step, cps, cps0)[1]
+    slots = torch.arange(count, device=cursor.device)
+    return slots < cursor[..., step : step + 1]
 
 
 def step_net_delta(
@@ -254,6 +288,7 @@ def step_net_delta(
     log_w: torch.Tensor,
     step: int,
     *,
+    cursor: torch.Tensor | None,
     cps: int,
     cps0: int,
     vocab_cap: int,
@@ -261,12 +296,17 @@ def step_net_delta(
     """Net count delta of one step of a log: (flat cells ``left *
     vocab_cap + right``, sorted, and their summed weights), zero sums
     dropped. Two logs of the same step agree when these agree, whatever
-    the order of their cells."""
+    the order of their cells.
+
+    The step's cells are the slots below ``min(cursor[step], capacity)``
+    (:func:`step_live`), whatever the slots past them hold. ``cursor=None``
+    reads a log whose empty slots are cleared to left = -1 (the JAX
+    kernel's, which leaves no cursor) by that mark instead."""
     first, count = step_slots(step, cps, cps0)
     left = log_l.reshape(-1)[first : first + count].long()
     right = log_r.reshape(-1)[first : first + count].long()
     weight = log_w.reshape(-1)[first : first + count].long()
-    live = left >= 0
+    live = left >= 0 if cursor is None else step_live(cursor, step, cps=cps, cps0=cps0)
     cells, inverse = torch.unique(left[live] * vocab_cap + right[live], return_inverse=True)
     sums = torch.zeros_like(cells).index_add_(0, inverse, weight[live])
     keep = sums != 0
@@ -274,8 +314,11 @@ def step_net_delta(
 
 
 __all__ = [
+    "CALLS",
     "LANES",
     "LAUNCHES",
+    "MAX_CHAIN_STEPS",
+    "MEMSETS",
     "STAGE_ROWS",
     "VMEM_LIMIT_BYTES",
     "log_rows",
@@ -283,6 +326,7 @@ __all__ = [
     "replay_emit_chunk",
     "replay_emit_chunk_reference",
     "replay_vmem_estimate",
+    "step_live",
     "step_net_delta",
     "step_slots",
 ]

@@ -46,8 +46,8 @@ def fused_state_from_numpy(
     [N, W] / ``freqs`` [N], the base vocabulary's token bytes and the
     vocabulary capacity: the tensors of
     ``hbm_driver.state_from_numpy`` (the [b0, b0] corner counts of
-    ``hbm_driver.initial_corner_counts`` in a zeroed [V, V] table) but
-    ``row_max``.
+    ``hbm_driver.initial_corner_counts`` in a zeroed [V, V] table, and
+    their exact row maxima) but ``stats``.
 
     ``num_merges`` sizes the merge record (default: vocab_cap - b0).
     """
@@ -58,6 +58,7 @@ def fused_state_from_numpy(
         words=st.words,
         freqs=st.freqs,
         counts=st.counts,
+        row_max=st.row_max,
         token_bytes=st.token_bytes,
         token_len=st.token_len,
         lex_rank=st.lex_rank,

@@ -115,8 +115,7 @@ def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fuse
         for name in TENSORS:
             assert torch.equal(getattr(kern, name), getattr(twin, name)), (name, start)
         assert torch.equal(kern.scalars[:3], twin.scalars[:3]), start
-        if not fused:
-            assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
+        assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
     return kern
 
 
@@ -223,20 +222,78 @@ def test_kernel_select_matches_model(name, seed):
     assert torch.equal(dev[1].cpu(), model_max)
 
 
+def _poison_allocator(nbytes: int = 64 << 20) -> None:
+    """Leave ``nbytes`` of the caching allocator's free blocks holding ids
+    >= 0 (0x01010101), so that the kernel's fresh outputs start out as
+    garbage that a reader could mistake for cells."""
+    torch.full((nbytes // 4,), 0x01010101, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,seed", [("random", s) for s in range(4)] + [(c, 0) for c in SELECT_CASES[1:]]
+)
+def test_fused_select_matches_model(name, seed):
+    """K1's select alone (CTA 0 of a one-CTA cluster) against
+    cluster_select_reference with the kernel's 16 stripes: the same pair,
+    count and verify rounds, and the same tightened row_max."""
+    _need_cuda()
+    counts, row_max, lex, n, min_freq = select_state(name, seed)
+    model_max = row_max.clone()
+    dev = [t.cuda() for t in (counts, row_max, lex)]
+    before = fused_loop.LAUNCHES["fused_select_step"]
+    got = fused_loop.fused_select_step(*dev, next_id=n, min_frequency=min_freq)
+    assert fused_loop.LAUNCHES["fused_select_step"] == before + 1
+    want = hbm_loop.cluster_select_reference(
+        counts, model_max, lex, next_id=n, min_frequency=min_freq,
+        cluster=fused_loop.SELECT_STRIPES,
+    )
+    assert got == want
+    assert torch.equal(dev[1].cpu(), model_max)
+
+
+@pytest.mark.cuda
+def test_fused_kernel_one_cluster_launch_per_chunk():
+    """A chunk is one launch of one cluster, its size cached per shape:
+    enough CTAs to give each word of large.txt a thread, at most 16."""
+    _need_cuda()
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    base = list(Vocab.base(SPECIALS).tokens())
+    state = fused_driver.fused_state_from_numpy(table.words, table.freqs, base, 600, "cuda")
+    n, v, byte_width = state.words.shape[0], 600, state.token_bytes.shape[1]
+    ctas = fused_loop.cluster_ctas(n, v, byte_width)
+    assert 1 <= ctas <= min(16, -(-n // 512))
+    assert 8 <= fused_loop.cluster_ctas(12000, v, byte_width) <= 16
+    before = fused_loop.LAUNCHES["fused_merge_chunk"]
+    fused_loop.fused_merge_chunk(state, chunk_start=0, chunk_size=50, num_merges=100, min_frequency=1)
+    torch.cuda.synchronize()
+    assert fused_loop.LAUNCHES["fused_merge_chunk"] == before + 1
+    assert int(state.scalars[hbm_loop.NUM_DONE]) == 50
+
+
 def _replay_vs_twin(words, freqs, chain, cps, cps0, vocab_cap):
-    """K3 and its twin on one shard: words, ok flags and every step's net
-    delta equal; returns the kernel's ok flags."""
+    """K3 and its twin on one shard, the kernel's outputs allocated over
+    poisoned memory: words, ok flags, cursors and every step's net delta
+    (read up to the cursor) equal, one launch and one memset for the call;
+    returns the kernel's ok flags."""
     before = words.clone()
+    counts = [c["replay_emit_chunk"] for c in (replay_emit.CALLS, replay_emit.LAUNCHES, replay_emit.MEMSETS)]
+    _poison_allocator()
     kern = replay_emit.replay_emit_chunk(words, freqs, chain, cps=cps, cps0=cps0)
+    assert [c["replay_emit_chunk"] for c in (replay_emit.CALLS, replay_emit.LAUNCHES, replay_emit.MEMSETS)] == [
+        x + 1 for x in counts
+    ]
     twin = replay_emit.replay_emit_chunk_reference(words, freqs, chain, cps=cps, cps0=cps0)
     torch.cuda.synchronize()
     assert torch.equal(words, before)
     assert torch.equal(kern[0], twin[0])
-    assert torch.equal(kern[4], twin[4])
+    assert torch.equal(kern[4], twin[4]) and torch.equal(kern[5], twin[5])
     for j, ok in enumerate(kern[4].tolist()):
         if ok:
-            a = replay_emit.step_net_delta(*kern[1:4], j, cps=cps, cps0=cps0, vocab_cap=vocab_cap)
-            b = replay_emit.step_net_delta(*twin[1:4], j, cps=cps, cps0=cps0, vocab_cap=vocab_cap)
+            kw = dict(cps=cps, cps0=cps0, vocab_cap=vocab_cap)
+            a = replay_emit.step_net_delta(*kern[1:4], j, cursor=kern[5], **kw)
+            b = replay_emit.step_net_delta(*twin[1:4], j, cursor=twin[5], **kw)
             assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), j
     return kern[4].tolist()
 

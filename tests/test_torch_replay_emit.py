@@ -53,12 +53,15 @@ def _port_inputs(words_list, freqs, chain, width):
     )
 
 
-def _same_net_deltas(logs_a, logs_b, steps, *, cps, cps0, vocab_cap, ok):
+def _same_net_deltas(logs_a, logs_b, steps, *, cursor_a, cps, cps0, vocab_cap, ok):
+    """The port's logs (read up to ``cursor_a``) against the JAX kernel's
+    (cleared empty slots)."""
     for j in range(steps):
         if not ok[j]:
             continue
-        a = replay_emit.step_net_delta(*logs_a, j, cps=cps, cps0=cps0, vocab_cap=vocab_cap)
-        b = replay_emit.step_net_delta(*logs_b, j, cps=cps, cps0=cps0, vocab_cap=vocab_cap)
+        kw = dict(cps=cps, cps0=cps0, vocab_cap=vocab_cap)
+        a = replay_emit.step_net_delta(*logs_a, j, cursor=cursor_a, **kw)
+        b = replay_emit.step_net_delta(*logs_b, j, cursor=None, **kw)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), f"step {j}"
 
 
@@ -99,18 +102,22 @@ def test_twin_matches_jax_kernel(seed):
     )
     words, fr, ch = _port_inputs(words_list, freqs, chain, width)
     tally: dict[str, int] = {}
-    out, *logs, ok = replay_emit.replay_emit_chunk_reference(
+    out, *logs, ok, cursor = replay_emit.replay_emit_chunk_reference(
         words, fr, ch, cps=64, cps0=128, tally=tally
     )
     assert np.array_equal(out.numpy(), want_words)
     assert ok.tolist() == want_ok.tolist() == [1] * len(chain)
-    _same_net_deltas(logs, want_logs, len(chain), cps=64, cps0=128, vocab_cap=64, ok=want_ok)
+    _same_net_deltas(
+        logs, want_logs, len(chain), cursor_a=cursor, cps=64, cps0=128, vocab_cap=64, ok=want_ok
+    )
     oracle = _oracle_words(words_list, chain)
     for i, w in enumerate(oracle):
         assert out[i, : len(w)].tolist() == w
     assert tally["affected_words"] > 0 and tally["cells"] > 0
-    assert tally["bytes"] == 8 * words.numel() + 4 * n + 12 * len(chain) + 12 * (
-        128 + 5 * 64) * 128 + 4 * len(chain)
+    assert tally["cells"] == int(cursor.sum())
+    # the shard read and written, freqs, chain, the cells, cursor and ok
+    assert tally["bytes"] == 8 * words.numel() + 4 * n + 12 * len(chain) + 12 * tally[
+        "cells"] + 8 * len(chain)
 
 
 def test_overflow_flags_match_jax():
@@ -122,9 +129,10 @@ def test_overflow_flags_match_jax():
     chain = [(1, 2, 50), (50, 3, 51)]
     want_words, _, want_ok = _jax_replay(words_list, [1] * n, chain, width, cps=8, cps0=8)
     words, fr, ch = _port_inputs(words_list, [1] * n, chain, width)
-    out, _, _, _, ok = replay_emit.replay_emit_chunk(words, fr, ch, cps=8, cps0=8)
+    out, _, _, _, ok, cursor = replay_emit.replay_emit_chunk(words, fr, ch, cps=8, cps0=8)
     assert want_ok[0] == 0 and int(ok[0]) == 0
     assert int(ok[1]) == 1  # 600 cells fit; the TPU kernel's unit is 8 rows
+    assert cursor.tolist() == [1800, 600]  # slots taken, past the capacity too
     assert np.array_equal(out.numpy(), want_words)
     assert (out[:, 0] == 51).all() and (out[:, 1:] == -1).all()
 
@@ -140,12 +148,16 @@ def test_ids_near_40000_match_jax_wide_mode():
         words_list, freqs, chain, width, cps=64, cps0=64, wide=True
     )
     words, fr, ch = _port_inputs(words_list, freqs, chain, width)
-    out, *logs, ok = replay_emit.replay_emit_chunk(words, fr, ch, cps=64, cps0=64)
+    out, *logs, ok, cursor = replay_emit.replay_emit_chunk(words, fr, ch, cps=64, cps0=64)
     assert np.array_equal(out.numpy(), want_words)
     assert ok.tolist() == want_ok.tolist() == [1, 1, 1]
     # the JAX kernel's cells are int32 ids in either mode
-    _same_net_deltas(logs, want_logs, 3, cps=64, cps0=64, vocab_cap=base + 8, ok=want_ok)
-    cells, sums = replay_emit.step_net_delta(*logs, 0, cps=64, cps0=64, vocab_cap=base + 8)
+    _same_net_deltas(
+        logs, want_logs, 3, cursor_a=cursor, cps=64, cps0=64, vocab_cap=base + 8, ok=want_ok
+    )
+    cells, sums = replay_emit.step_net_delta(
+        *logs, 0, cursor=cursor, cps=64, cps0=64, vocab_cap=base + 8
+    )
     assert int(sums.sum()) == -3  # word 0 loses one adjacent pair
 
 
@@ -156,7 +168,7 @@ def test_input_shard_untouched_and_layout():
     before = words.clone()
     freqs = torch.ones(50, dtype=torch.int32)
     chain = torch.tensor([[0, 1, 6], [6, 2, 7], [-1, 0, 0], [3, 3, 8]], dtype=torch.int32)
-    out, log_l, log_r, log_w, ok = replay_emit.replay_emit_chunk(words, freqs, chain, cps=16)
+    out, log_l, log_r, log_w, ok, cursor = replay_emit.replay_emit_chunk(words, freqs, chain, cps=16)
     assert torch.equal(words, before) and not torch.equal(out, before)
     rows = replay_emit.log_rows(4, 16, 64)
     assert log_l.shape == log_r.shape == log_w.shape == (rows, 128)
@@ -165,7 +177,8 @@ def test_input_shard_untouched_and_layout():
     assert bool((log_r.view(-1)[empty] == -1).all() and (log_w.view(-1)[empty] == 0).all())
     # an inactive row logs nothing
     first, count = replay_emit.step_slots(2, 16, 64)
-    assert bool((log_l.view(-1)[first : first + count] == -1).all())
+    assert bool((log_l.view(-1)[first : first + count] == -1).all()) and int(cursor[2]) == 0
+    assert cursor.shape == (4,) and int(cursor.sum()) == int((log_l.view(-1) >= 0).sum())
 
 
 def test_wrapper_takes_the_twin_on_cpu_only():
