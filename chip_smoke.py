@@ -97,7 +97,34 @@ package. Phases, none of whose failures is caught:
       vocab must equal the native loop's; prints the merge seconds and
       the us per merge. Cuts: vocab 4,096, not 32,000, because these
       engines hold no kernel of their own and are plain torch ops; the
-      chip time goes to 9b.
+      chip time goes to 9b;
+10. file and device encoding (tok/parallel_encode.py, tok/device_encode.py;
+    plain torch on the card, no kernel of this repository):
+   a. the merge-rank scan on the card against the same function on the
+      CPU, on the tiles of the first 4 MiB chunk of phase 4's corpus with
+      the 32,000-token model: the outputs must be equal arrays; prints the
+      tiles' shapes, their scan iterations and host syncs, each tile's time
+      by CUDA events as the host issues it, and again queued ahead of the
+      device with no test for work (the device's own time, which must give
+      the same rows), beside the bytes' bound;
+   b. full width: phase 4's 100 MB corpus with the 32,000-token model,
+      <|endoftext|> as the special token: encode_file(path, device=True)
+      on the card, encode_file(path) on the host (native threads), and
+      encode_file(path, device=True) again with the word cache warm (no
+      new unique word); all three must equal the whole text's encode as
+      int32, which must decode back to the file; then a fresh encoder that
+      waits for each chunk's scans before the next chunk's native scan
+      (the same ids): the device work it waits for is what the cold run
+      overlapped, and its extra time what the overlap saved; prints MB/s
+      of each run, unique words, tiles, iterations and host syncs per tile,
+      the scans' time on the device timeline by CUDA events, the host's
+      seconds in the native scans, the scans' dispatch and the readbacks,
+      and peak device memory;
+   c. batches: phase 7's vocab-1000 model on the 5 MB TinyStories text as
+      one batch and on the golden snippets: encode_batch(device=True),
+      cold and warm, and encode_batch(device=True, data_shards=4) must
+      equal the host's encode_batch; prints MB/s. Each device encoder must
+      exist (no host fallback), have run tiles and hold its tables on cuda.
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}. K1's and
@@ -569,6 +596,164 @@ def plain_ids(tok, text: str) -> list[int]:
     return ids
 
 
+def scan_tiles_vs_cpu(tok, corpus: Path, card) -> None:
+    """Phase 10a: the scan on the card against the same function on the
+    CPU, tile by tile, on the new words of the first 4 MiB chunk."""
+    import numpy as np
+    import torch
+
+    from yabpe_tpu_torch import native
+    from yabpe_tpu_torch.tok.device_encode import DeviceEncoder, scan_encode
+    from yabpe_tpu_torch.tok.parallel_encode import safe_cut_points
+
+    start, end = safe_cut_points(corpus, 4 << 20, SPECIALS)[0]
+    with open(corpus, "rb") as f:
+        data = f.read(end - start)
+    counter = native.NativeCounter(tuple(SPECIALS))
+    counter.add_word_ids_specials(data)
+    words = counter.export_words()
+    counter.close()
+    cuda = DeviceEncoder(tok._vocab, tok._merges, SPECIALS, device="cuda")
+    cpu = DeviceEncoder(tok._vocab, tok._merges, SPECIALS, device="cpu")
+    tables = (cuda._sorted_keys, cuda._sorted_ranks, cuda._sorted_new_syms, cuda._n_syms)
+    table_bytes = sum(t.numel() * t.element_size() for t in tables[:3])
+    shapes, iters, syncs, ms, device_ms, bound_ms = [], [], [], [], [], []
+    for _, tile, row_lens in cuda.pack_tiles(words):
+        before = (cuda.stats["iterations"], cuda.stats["syncs"])
+        t = torch.from_numpy(tile).cuda()
+        cuda.scan_tile(t, row_lens)  # warm
+        cuda.stats.update(iterations=before[0], syncs=before[1])
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        got = cuda.scan_tile(t, row_lens)
+        e1.record()
+        torch.cuda.synchronize()
+        want = cpu.scan_tile(torch.from_numpy(tile), row_lens)
+        check(np.array_equal(got.cpu().numpy(), want.numpy()),
+              f"device encode: the scan on the card differs from the CPU on a {tile.shape} tile")
+        shapes.append(tile.shape)
+        iters.append(cuda.stats["iterations"] - before[0])
+        syncs.append(cuda.stats["syncs"] - before[1])
+        ms.append(e0.elapsed_time(e1))
+        # the device's own time: the same iterations with no test for work,
+        # all queued behind a spin kernel before the first starts
+        torch.cuda._sleep(100_000_000)
+        e0.record()
+        again = scan_encode(t, *tables, max_iters=int(row_lens.max()) - 1, check_every=tile.shape[1])
+        e1.record()
+        torch.cuda.synchronize()
+        check(torch.equal(again, got), "device encode: the scan without tests for work differs")
+        device_ms.append(e0.elapsed_time(e1))
+        bound_ms.append((2 * tile.nbytes + table_bytes) / HBM_BYTES_PER_S * 1e3)
+    check(cuda.stats["iterations"] == cpu.stats["iterations"], "device encode: iteration counts differ")
+    print(f"device_encode_scan_vs_cpu_100M_v32000 (first 4 MiB chunk): words={len(words)} "
+          f"tiles={len(shapes)} shapes={shapes} iterations_per_tile={iters} "
+          f"host_syncs_per_tile={syncs} scan_ms_per_tile={ms} scan_ms={sum(ms)} "
+          f"queued_ahead_ms_per_tile={device_ms} queued_ahead_ms={sum(device_ms)} "
+          f"bound_ms={sum(bound_ms)} by bytes "
+          f"max_abs_err=0 (tolerance: exact) [{card}]")
+
+
+def device_encode_run(big_vocab, big_merges, corpus: Path, small_tok, card) -> None:
+    """Phases 10b and 10c: the device and host file encoders at full width,
+    and the batched device encoder."""
+    import numpy as np
+    import torch
+
+    from yabpe_tpu_torch import BBPETokenizer, native
+    from yabpe_tpu_torch.tok.device_encode import DeviceEncoder
+
+    check(native.available(), "the native library did not build")
+    tok = BBPETokenizer(big_vocab, big_merges, SPECIALS)
+    scan_tiles_vs_cpu(tok, corpus, card)
+
+    # ---- 10b. the 100 MB corpus through both file encoders
+    text = corpus.read_text(encoding="utf-8")
+    nbytes = corpus.stat().st_size
+    t0 = time.perf_counter()
+    want = np.asarray(tok.encode(text), dtype=np.int32)
+    whole_s = time.perf_counter() - t0
+    enc = tok._get_device_encoder(None)
+    check(enc is not None, "no device encoder for the 32k model")
+    enc.scan_events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dev_ids = tok.encode_file(corpus, device=True)
+    dev_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    scan_ms = sum(a.elapsed_time(b) for a, b in enc.scan_events)
+    cold = dict(enc.stats)
+    enc.scan_events = None
+    t0 = time.perf_counter()
+    host_ids = tok.encode_file(corpus)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm_ids = tok.encode_file(corpus, device=True)
+    warm_s = time.perf_counter() - t0
+    warm_new = enc.stats["new_words"] - cold["new_words"]
+    # the overlap: a fresh encoder that waits for each chunk's scans before
+    # the next chunk's native scan; what it waits for is what ran under that
+    # scan in the cold run, and its extra wall time what the overlap saved
+    seq = DeviceEncoder(big_vocab, big_merges, SPECIALS, device="cuda")
+    dispatch, queued = seq._dispatch_word_rows, []
+
+    def dispatch_and_wait(encoded):
+        pending = dispatch(encoded)
+        t = time.perf_counter()
+        torch.cuda.synchronize()
+        queued.append(time.perf_counter() - t)
+        return pending
+
+    seq._dispatch_word_rows = dispatch_and_wait
+    t0 = time.perf_counter()
+    seq_ids = seq.encode_file(corpus)
+    seq_s = time.perf_counter() - t0
+    for name, ids in (("device", dev_ids), ("host", host_ids), ("warm device", warm_ids),
+                      ("waiting device", seq_ids)):
+        check(ids.dtype == np.int32 and np.array_equal(ids, want),
+              f"device encode: {name} encode_file differs from the whole text's encode")
+    check(warm_new == 0, f"device encode: the warm run found {warm_new} new words")
+    check(tok.decode(want.tolist()) == text, "device encode: the ids do not decode to the file")
+    tiles = max(cold["tiles"], 1)
+    print(f"device_encode_file_100M_v32000: bytes={nbytes} ids={len(want)} "
+          f"whole_text_encode_s={whole_s} ({nbytes / whole_s / 1e6} MB/s, one native pass) "
+          f"device_s={dev_s} ({nbytes / dev_s / 1e6} MB/s) host_threads_s={host_s} "
+          f"({nbytes / host_s / 1e6} MB/s) warm_device_s={warm_s} ({nbytes / warm_s / 1e6} MB/s) "
+          f"waiting_device_s={seq_s} overlapped_s={sum(queued)} (device work queued when the host "
+          f"turned to the next chunk) saved_s={seq_s - dev_s} [{card}]")
+    print(f"device_encode_file_100M_v32000: unique_words={cold['new_words']} tiles={cold['tiles']} "
+          f"iterations_per_tile={cold['iterations'] / tiles} host_syncs_per_tile={cold['syncs'] / tiles} "
+          f"readbacks={cold['readbacks']} scan_device_ms={scan_ms} (CUDA events) "
+          f"host_scan_s={cold['host_scan_s']} dispatch_s={cold['dispatch_s']} "
+          f"collect_s={cold['collect_s']} warm_new_words={warm_new} max_memory_allocated={peak} B [{card}]")
+    del text, want, dev_ids, host_ids, warm_ids, seq_ids, seq
+
+    # ---- 10c. batches with the vocab-1000 model
+    golden = REPO / "tests" / "fixtures_gpt2" / "golden_encode" / "gpt2_golden.json"
+    snippets = json.loads(golden.read_text(encoding="utf-8"))["snippets"]["texts"]
+    story = TINYSTORIES.read_text(encoding="utf-8")
+    for label, texts in (("tinystories_5M", [story]), ("snippets", snippets)):
+        nb = sum(len(t.encode("utf-8")) for t in texts)
+        t0 = time.perf_counter()
+        host = small_tok.encode_batch(texts)
+        host_s = time.perf_counter() - t0
+        times = {}
+        for run, shards in (("cold", None), ("warm", None), ("shards4", 4)):
+            t0 = time.perf_counter()
+            got = small_tok.encode_batch(texts, device=True, data_shards=shards)
+            times[run] = time.perf_counter() - t0
+            check(got == host, f"device encode: encode_batch({label}, {run}) differs from the host")
+        print(f"device_encode_batch_{label}_v1000: bytes={nb} host_s={host_s} "
+              + " ".join(f"{run}_s={t} ({nb / t / 1e6} MB/s)" for run, t in times.items())
+              + f" [{card}]")
+    for t, shards in ((tok, None), (small_tok, None), (small_tok, 4)):
+        enc = t._get_device_encoder(shards)
+        check(enc is not None and enc.stats["tiles"] > 0 and enc._sorted_keys.device.type == "cuda",
+              "device encode: a device path fell back to the host")
+
+
 def main() -> int:
     import torch
 
@@ -855,7 +1040,6 @@ def main() -> int:
     check(replay_launches > 0, "the resumed run never launched hbm_merge_chunk")
     check(resumed.merges == big_native.merges, "resumed merges differ from the native loop")
     check(resumed.vocab == big_native.vocab, "resumed vocab differs from the native loop")
-    corpus_dir.cleanup()
 
     # ---- 9c. words past 64 symbols, on the fallback engines on the card
     with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_wide_") as tmp:
@@ -867,6 +1051,12 @@ def main() -> int:
             )
         wide_words_run("wide_words_5M_v4096", [tmp / "wide_5M.txt"], 4096, "bigvocab", card)
         wide_words_run("wide_words_large_v1024", [tmp / "wide_large.txt"], 1024, "incremental", card)
+
+    # ---- 10. file and device encoding
+    t0 = time.perf_counter()
+    device_encode_run(big_native.vocab, big_native.merges, corpus, tok, card)
+    print(f"phase 10: {time.perf_counter() - t0:.3f} s")
+    corpus_dir.cleanup()
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {
         "kernels": [

@@ -33,6 +33,7 @@ SPECIALS = ["<|endoftext|>"]
 
 def profile_engine(label, path, vocab_cap, big, warm, window, card):
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from yabpe_tpu_torch.core.vocab import Vocab
@@ -65,7 +66,9 @@ def profile_engine(label, path, vocab_cap, big, warm, window, card):
         wall_s = time.perf_counter() - t0
     steps = int(st.core.vocab.num_done) - warm
     events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events if e.self_device_time_total > 0)
+    # only the device's own events: a CPU op's device time repeats its kernels'
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in device)
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
     syncs = sum(e.count for e in events if e.key == "cudaStreamSynchronize")
     print(f"{label}: N={table.words.shape[0]} W={table.words.shape[1]} V={vocab_cap} "
@@ -73,8 +76,7 @@ def profile_engine(label, path, vocab_cap, big, warm, window, card):
           f"wall_ms_per_step={1e3 * wall_s / steps} device_busy_ms_per_step={device_us / 1e3 / steps} "
           f"idle_share={1 - device_us / 1e6 / wall_s} launches_per_step={launches / steps} "
           f"host_syncs_per_step={syncs / steps} [{card}]")
-    top = sorted((e for e in events if e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
     for e in top:
         print(f"  {e.key[:70]}: {e.self_device_time_total / steps:.2f} us/step, "
               f"{e.count / steps:.2f} calls/step")

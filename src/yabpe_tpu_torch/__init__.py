@@ -11,7 +11,8 @@ ported so far:
 The merge loop runs as hand-written CUDA kernels over state in device
 memory (``csrc/fused_loop.cu`` for small vocabularies, ``csrc/hbm_loop.cu``
 for large ones); ingestion and host encoding are the native C++ library
-in ``native/``. This package imports torch and numpy, never JAX and never
+in ``native/``, and the batched device encoder a merge-rank scan in torch
+(``tok/device_encode.py``). This package imports torch and numpy, never JAX and never
 the JAX package.
 """
 

@@ -9,7 +9,7 @@ one process, and the exchange (the JAX loop's ``all_gather`` over the
 axis. :meth:`DataMesh.all_gather` is the one place that exchanges, so a
 multi-process version can put ``torch.distributed`` there (NCCL on the
 card, gloo on the CPU), together with ``dist/ingest.py``: ROADMAP.md
-queue 1 item 9.
+queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 _MULTI_PROCESS = (
     "multi-process data sharding (torch.distributed, with dist/ingest.py) "
-    "is not ported yet (ROADMAP.md, queue 1 item 9: distributed)"
+    "is not ported yet (ROADMAP.md, queue 1 item 6: distributed)"
 )
 
 

@@ -4,7 +4,7 @@ Counterpart of yabpe_tpu/dist/speculative.py, in part: only
 :func:`estimate_followup_2d` (``:121``), which the data-sharded merge loop
 (``dist/hbm_sharded.py``) builds its speculative chains with. The XLA
 speculative loop of that module (``_spec_epoch``,
-``sharded_chunk_speculative``) waits for ROADMAP.md queue 1 item 9.
+``sharded_chunk_speculative``) waits for ROADMAP.md queue 1 item 6.
 """
 
 from __future__ import annotations

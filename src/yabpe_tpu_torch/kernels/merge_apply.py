@@ -12,8 +12,9 @@ wide ones with a sort, a choice of speed on the TPU; both give the same
 rows, so this one sorts at every width.
 
 These are XLA code in the JAX package, not a Pallas kernel: the
-fallback engines (train/incremental.py, train/bigvocab.py) and the
-checkpoint replay (train/checkpoint.py) run them on the caller's device.
+fallback engines (train/incremental.py, train/bigvocab.py), the
+checkpoint replay (train/checkpoint.py) and the device encoder's scan
+(tok/device_encode.py) run them on the caller's device.
 """
 
 from __future__ import annotations
@@ -85,4 +86,32 @@ def apply_pair_merge(
     return compact_rows(vals, keep)
 
 
-__all__ = ["apply_pair_merge", "compact_rows", "leftmost_nonoverlapping"]
+def apply_rowwise_merge(
+    words: torch.Tensor, applied: torch.Tensor, new_syms: torch.Tensor
+) -> torch.Tensor:
+    """The encoder's apply: precomputed merges, a symbol per position.
+
+    Args:
+        words: int32 [N, W], -1 padded.
+        applied: bool [N, W - 1]; non-overlapping merge starts of each row.
+        new_syms: int32 [N, W - 1]; the replacement symbol of each applied
+            position (read nowhere else).
+
+    Returns:
+        The updated words, compacted, same shape; ``words`` is not changed.
+    """
+    false_col = torch.zeros((words.shape[0], 1), dtype=torch.bool, device=words.device)
+    applied_at = torch.cat([applied, false_col], dim=1)  # merge starts
+    removed_at = torch.cat([false_col, applied], dim=1)  # right halves
+    new_full = torch.cat([new_syms.to(words.dtype), torch.full_like(words[:, :1], PAD)], dim=1)
+    vals = torch.where(applied_at, new_full, words)
+    keep = ~removed_at & (words >= 0)
+    return compact_rows(vals, keep)
+
+
+__all__ = [
+    "apply_pair_merge",
+    "apply_rowwise_merge",
+    "compact_rows",
+    "leftmost_nonoverlapping",
+]

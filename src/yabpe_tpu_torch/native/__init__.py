@@ -2,7 +2,8 @@
 
 Counterpart of yabpe_tpu/native/__init__.py, cut to what the port calls:
 the GPT-2 pre-token scanner and word-frequency counter
-(:class:`NativeCounter`), the strict UTF-8 validator, the special-token
+(:class:`NativeCounter`, with the unique-word id scan of the device
+encoder), the strict UTF-8 validator, the special-token
 finder, the host merge loop (:func:`train_host_raw`) and the per-word BPE
 encoder of the tokenizer (:class:`NativeEncoder`). The library is
 compiled from ``native/yabpe_native.cpp`` at the repository root, unchanged,
@@ -110,6 +111,16 @@ def load() -> ctypes.CDLL:
         ]
         lib.yabpe_utf8_validate.restype = ctypes.c_int64
         lib.yabpe_utf8_validate.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+        lib.yabpe_pretok_word_ids.restype = ctypes.c_int64
+        lib.yabpe_pretok_word_ids.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, _P_I32,
+            ctypes.c_int64,
+        ]
+        lib.yabpe_pretok_word_ids_specials.restype = ctypes.c_int64
+        lib.yabpe_pretok_word_ids_specials.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p,
+            _P_I32, ctypes.c_int32, _P_I32, ctypes.c_int64,
+        ]
         lib.yabpe_find_specials.restype = ctypes.c_int64
         lib.yabpe_find_specials.argtypes = [
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, _P_I32,
@@ -399,6 +410,40 @@ class NativeCounter:
             self._h, data, len(data),
             self._special_bytes, self._special_lens, self._n_specials,
         )
+
+    def add_word_ids(self, data: bytes) -> np.ndarray:
+        """Pre-tokenize ``data`` (no specials) and return each occurrence's
+        unique-word id, registering new words in this counter."""
+        assert self._h is not None
+        n = len(data)
+        out = np.empty(max(n, 1), dtype=np.int32)
+        count = self._lib.yabpe_pretok_word_ids(self._h, data, n, _i32p(out), n)
+        return out[:count]
+
+    def add_word_ids_specials(self, data: bytes) -> np.ndarray:
+        """Tokenizer-dialect pre-tokenization of ``data`` with this
+        counter's special tokens, in one native pass: a pre-token
+        occurrence yields its unique-word id (registered here), a special
+        occurrence ``-(1 + special_index)``, the index into the
+        constructor's order of the specials (longest-first expected)."""
+        assert self._h is not None
+        n = len(data)
+        out = np.empty(max(n, 1), dtype=np.int32)
+        count = self._lib.yabpe_pretok_word_ids_specials(
+            self._h, data, n, self._special_bytes, self._special_lens,
+            self._n_specials, _i32p(out), n,
+        )
+        return out[:count]
+
+    def export_words(self) -> list[bytes]:
+        """The unique words in insertion (id) order."""
+        words, lens, _ = self.export()
+        out: list[bytes] = []
+        off = 0
+        for length in lens.tolist():
+            out.append(words[off : off + length])
+            off += length
+        return out
 
     def merge(self, other: "NativeCounter") -> None:
         assert self._h is not None and other._h is not None

@@ -1,4 +1,5 @@
-"""Tokenization: the host tokenizer API."""
+"""Tokenization: the tokenizer API, whole-file encoding and the batched
+device encoder."""
 
 from yabpe_tpu_torch.tok.tokenizer import BBPETokenizer
 

@@ -182,13 +182,13 @@ class BBPETrainer:
         if (cfg.vocab_shards or 1) > 1:
             raise NotImplementedError(
                 "vocabulary-sharded training (vocab_shards > 1) is not "
-                "ported yet (ROADMAP.md, queue 1 item 9: distributed)"
+                "ported yet (ROADMAP.md, queue 1 item 6: distributed)"
             )
         if (cfg.data_shards or 1) > 1 and cfg.use_hbm_kernel is not True:
             raise NotImplementedError(
                 "data_shards > 1 runs only the data-sharded kernel loop "
                 "(use_hbm_kernel=True); the XLA sharded loop is not ported "
-                "yet (ROADMAP.md, queue 1 item 9: distributed)"
+                "yet (ROADMAP.md, queue 1 item 6: distributed)"
             )
 
     def _train_device(

@@ -513,3 +513,60 @@ def test_engines_on_cuda_past_the_kernels(tmp_path):
         assert hbm_loop.LAUNCHES["hbm_merge_chunk"] == fused_loop.LAUNCHES["fused_merge_chunk"] == 0
         native = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True)).train([path])
         assert model.merges == native.merges and model.vocab == native.vocab
+
+
+def _encode_model():
+    """(vocab, merges) at vocab 600 on tests/data/large.txt, by the native
+    loop, and the unique pre-tokens of that file."""
+    from yabpe_tpu_torch import native
+
+    kw = dict(vocab_size=600, min_frequency=1, max_workers=1, special_tokens=SPECIALS)
+    model = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True)).train([DATA / "large.txt"])
+    counter = native.NativeCounter(tuple(SPECIALS))
+    counter.add_word_ids_specials((DATA / "large.txt").read_bytes())
+    words = counter.export_words()
+    counter.close()
+    return model.vocab, model.merges, words
+
+
+@pytest.mark.cuda
+def test_device_encode_scan_on_cuda_matches_cpu():
+    """The merge-rank scan on the card equals the same function on the CPU,
+    tile by tile, with the rows split into shards or not."""
+    _need_cuda()
+    from yabpe_tpu_torch.tok.device_encode import DeviceEncoder
+
+    vocab, merges, words = _encode_model()
+    words = words + [b"a" * 40, b"ab" * 50]  # a run, and a width of 128
+    for shards in (None, 4):
+        cuda = DeviceEncoder(vocab, merges, SPECIALS, max_rows=256, data_shards=shards, device="cuda")
+        cpu = DeviceEncoder(vocab, merges, SPECIALS, max_rows=256, data_shards=shards, device="cpu")
+        tiles = cuda.pack_tiles(words)
+        assert len(tiles) > 1
+        for _, tile, row_lens in tiles:
+            got = cuda.scan_tile(torch.from_numpy(tile).cuda(), row_lens)
+            want = cpu.scan_tile(torch.from_numpy(tile), row_lens)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want)
+        assert cuda.stats["iterations"] == cpu.stats["iterations"]
+
+
+@pytest.mark.cuda
+def test_device_encode_batch_and_file_on_cuda_match_host(tmp_path):
+    _need_cuda()
+    from yabpe_tpu_torch import BBPETokenizer
+
+    vocab, merges, _ = _encode_model()
+    tok = BBPETokenizer(vocab, merges, SPECIALS)
+    text = (DATA / "large.txt").read_text(encoding="utf-8")
+    texts = [text, "unicode 東京 🚀<|endoftext|>tail aaaa", ""]
+    host = tok.encode_batch(texts)
+    for shards in (None, 4):
+        assert tok.encode_batch(texts, device=True, data_shards=shards) == host
+    enc = tok._get_device_encoder(None)
+    assert enc.stats["tiles"] > 0 and enc._sorted_keys.device.type == "cuda"
+    path = tmp_path / "corpus.txt"
+    path.write_text((text + "\n<|endoftext|>\n") * 20, encoding="utf-8")
+    want = np.asarray(tok.encode(path.read_text(encoding="utf-8")), dtype=np.int32)
+    assert np.array_equal(tok.encode_file(path, chunk_bytes=8192, device=True), want)
+    assert np.array_equal(tok.encode_file(path, chunk_bytes=8192), want)

@@ -203,7 +203,7 @@ def test_plan_and_admission_match_jax():
     # cps0 as the JAX loop plans it: 2 log rows per 128 words of a shard
     assert hbm_sharded.log_plan(388096, 16, 4, 16, 64)[1] == 1520
     assert hbm_sharded.log_plan(1024, 16, 4, 8, 64)[1] == 256
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         make_data_mesh(4, "cpu", processes=2)
 
 
@@ -313,9 +313,9 @@ def test_trainer_route_matches_single_device():
 
 
 def test_trainer_route_raises_where_not_ported():
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         BBPETrainer(BBPETrainerConfig(vocab_size=300, device="cpu", data_shards=2)).train([DATA / "sample.txt"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         BBPETrainer(BBPETrainerConfig(
             vocab_size=300, device="cpu", data_shards=2, use_hbm_kernel=True, vocab_shards=2,
         )).train([DATA / "sample.txt"])

@@ -44,11 +44,17 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "yabpe_tpu_torch.kernels.merge_apply, yabpe_tpu_torch.kernels.pair_count, "
         "yabpe_tpu_torch.kernels.select, yabpe_tpu_torch.train.state, "
         "yabpe_tpu_torch.train.incremental, yabpe_tpu_torch.train.bigvocab, "
-        "yabpe_tpu_torch.train.checkpoint\n"
+        "yabpe_tpu_torch.train.checkpoint, yabpe_tpu_torch.tok.parallel_encode, "
+        "yabpe_tpu_torch.tok.device_encode, tempfile, pathlib\n"
         "tok = yabpe_tpu_torch.BBPETokenizer("
         "{b'a': 0, b'b': 1, b' ': 2, b'ab': 3, b' ab': 4}, "
         "[(b'a', b'b'), (b' ', b'ab')], [])\n"
         "assert tok.encode('abab ab' * 20)[:4] == [3, 3, 4, 3], tok.encode('abab ab')\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    p = pathlib.Path(d) / 'f.txt'\n"
+        "    p.write_text('abab ab\\n' * 3000)\n"
+        "    ids = tok.encode_file(p, max_workers=2, chunk_bytes=4096)\n"
+        "    assert ids.tolist() == tok.encode(p.read_text()), ids[:8]\n"
         "bad =[m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'yabpe_tpu' or m.startswith('yabpe_tpu.') or m == 'regex']\n"
         "print(bad)\n"

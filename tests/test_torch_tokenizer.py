@@ -107,11 +107,3 @@ def test_gpt2_dialect_round_trip(model_dir, tmp_path):
     assert got.special_tokens == want.special_tokens == SPECIALS
     for text in SNIPPETS:
         assert got.encode(text) == want.encode(text) == port.encode(text)
-
-
-def test_device_and_file_encoding_raise(model_dir, tmp_path):
-    tok = BBPETokenizer.from_file(model_dir)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tok.encode_batch(SNIPPETS, device=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tok.encode_file(DATA / "sample.txt")

@@ -132,8 +132,8 @@ def test_save_matches_jax_trainer_files(tmp_path):
 
 def test_not_ported_configurations_raise(tmp_path):
     for kw, item in [
-        (dict(data_shards=2), "item 9"),
-        (dict(vocab_shards=2), "item 9"),
+        (dict(data_shards=2), "item 6"),
+        (dict(vocab_shards=2), "item 6"),
     ]:
         cfg = BBPETrainerConfig(vocab_size=300, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=item):
