@@ -124,7 +124,35 @@ package. Phases, none of whose failures is caught:
       one batch and on the golden snippets: encode_batch(device=True),
       cold and warm, and encode_batch(device=True, data_shards=4) must
       equal the host's encode_batch; prints MB/s. Each device encoder must
-      exist (no host fallback), have run tiles and hold its tables on cuda.
+      exist (no host fallback), have run tiles and hold its tables on cuda;
+11. the distributed layer (dist/sharded.py, dist/speculative.py,
+    dist/ingest.py, dist/mesh.py; plain torch, no kernel of its own) and
+    the CLI, each part with every kernel's launch count zeroed before and
+    read after:
+   a. the slice at full width: phase 4's 100 MB corpus at vocab 32,000 in
+      2 data x 2 vocab shards on the card (two [16,000 x 32,000] count
+      slabs), resumed from a checkpoint of the native loop's first 29,743
+      merges written by hand, so that the last 2,000 merges run live at
+      the full table (the depth cut, to keep the phase short); the merges
+      and vocab must equal phase 4c's native loop and no kernel may run;
+      prints the resume (replay) and slab-init seconds, ms and host syncs
+      per merge, and peak device memory;
+   b. the 5 MB realistic fixture at vocab 2,048, min_frequency 2, 4 data
+      shards, per step from step 0 (the full recount of the first merges
+      included), and c. the same in speculative epochs of 16: each equal
+      to the native loop; prints merge seconds, steps or epochs and
+      commits per epoch;
+   d. two processes on the card (torch.multiprocessing, spawn) over gloo,
+      4 data shards, two a process: count_pretokens_global over the two 5
+      MB fixtures, one file a process, must equal one process's ingest of
+      both; the kernel-sharded route (K3 on each process's shards, which
+      must launch) and the sharded loop at vocab 2,048 must equal one
+      process's native loop; a process that fails or passes 360 s fails
+      the phase;
+   e. the CLI (cli/train_bpe.py) on tests/data/large.txt at vocab 1024
+      with --device cuda, then with --profile-dir: the saved files must
+      equal BBPETrainer.save's for the same config, and the trace must
+      exist and not be empty.
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}. K1's and
@@ -754,6 +782,258 @@ def device_encode_run(big_vocab, big_merges, corpus: Path, small_tok, card) -> N
               "device encode: a device path fell back to the host")
 
 
+# ---- phase 11: the distributed layer (dist/, cli/; plain torch, no kernel)
+
+
+def kernel_launches() -> dict[str, int]:
+    from yabpe_tpu_torch.kernels import fused_loop, hbm_loop, replay_emit
+
+    return {
+        "fused_merge_chunk": fused_loop.LAUNCHES["fused_merge_chunk"],
+        "hbm_merge_chunk": hbm_loop.LAUNCHES["hbm_merge_chunk"],
+        "replay_emit_chunk": replay_emit.LAUNCHES["replay_emit_chunk"],
+    }
+
+
+def zero_kernel_launches() -> None:
+    from yabpe_tpu_torch.kernels import fused_loop, hbm_loop, replay_emit
+
+    fused_loop.LAUNCHES["fused_merge_chunk"] = 0
+    hbm_loop.LAUNCHES["hbm_merge_chunk"] = 0
+    for counter in (replay_emit.CALLS, replay_emit.LAUNCHES, replay_emit.MEMSETS):
+        counter["replay_emit_chunk"] = 0
+
+
+def loop_line(loop: dict) -> str:
+    """A sharded loop's counters, per step where they are per step."""
+    steps = loop.get("steps", 0)
+    merges = steps + loop.get("spec_commits", 0)
+    parts = [f"{k}={loop[k]}" for k in (
+        "steps", "full_recounts", "select_finishes", "spec_epochs", "spec_commits",
+        "commits_per_epoch", "fallback_chunks", "final_k", "resume_seconds",
+        "slab_init_seconds", "loop_seconds",
+    ) if k in loop]
+    if merges:
+        parts.append(f"ms_per_merge={1e3 * loop['loop_seconds'] / merges}")
+        parts.append(f"host_syncs_per_merge={loop['host_syncs'] / merges}")
+    parts.append(f"host_syncs={loop['host_syncs']}")
+    return " ".join(parts)
+
+
+def sharded_resume_run(corpus: Path, native_model, card: str) -> None:
+    """11a: the 100 MB corpus at vocab 32,000 in 2 data x 2 vocab shards,
+    resumed from a checkpoint of the native loop's first 29,743 merges."""
+    import numpy as np
+    import torch
+
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+    from yabpe_tpu_torch.train import checkpoint as ckpt
+
+    done = 29_743
+    ids = native_model.vocab
+    record = np.array(
+        [(ids[left], ids[right], ids[left + right]) for left, right in native_model.merges],
+        dtype=np.int32,
+    )
+    record[done:] = -1
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_2d_") as ckdir:
+        cfg = BBPETrainerConfig(
+            vocab_size=32000, min_frequency=2, max_workers=8,
+            chunk_size_bytes=32 << 20, special_tokens=SPECIALS,
+            align_chunks_to_newline=True, device="cuda", data_shards=2,
+            vocab_shards=2, checkpoint_dir=ckdir, checkpoint_every_chunks=1 << 20,
+        )
+        ckpt.save_checkpoint(ckdir, record, done, cfg)
+        trainer = BBPETrainer(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_launches()
+        model = trainer.train([corpus])
+        launches = kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+    loop, stats = trainer.loop_stats, trainer.last_stats
+    print(f"11a 2x2 sharded loop, 100 MB at V=32000, resumed at merge {done} "
+          f"(depth cut: the last {len(native_model.merges) - done} of "
+          f"{len(native_model.merges)} merges run live): route={trainer.route} "
+          f"merge_s={stats['merge_seconds']} {loop_line(loop)} "
+          f"max_memory_allocated={peak} B kernel_launches={launches} [{card}]")
+    check(trainer.route == "sharded_loop", f"11a took {trainer.route}")
+    check(loop["steps"] == len(native_model.merges) - done, f"11a ran {loop['steps']} steps")
+    check(model.merges == native_model.merges, "11a merges differ from the native loop")
+    check(model.vocab == native_model.vocab, "11a vocab differs from the native loop")
+    check(not any(launches.values()), f"11a launched a kernel: {launches}")
+
+
+def sharded_loop_runs(card: str) -> None:
+    """11b/11c: the 5 MB realistic fixture at vocab 2,048 in 4 data shards,
+    per step and in speculative epochs of 16, from step 0."""
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+
+    fixture = REPO / "tests" / "fixtures_gpt2" / "bench_5M_realistic.txt"
+    cfg = dict(
+        vocab_size=2048, min_frequency=2, max_workers=8,
+        chunk_size_bytes=32 << 20, special_tokens=SPECIALS,
+        align_chunks_to_newline=True, merge_chunk_size=256,
+    )
+    native = BBPETrainer(BBPETrainerConfig(**cfg, use_native_loop=True)).train([fixture])
+    for label, extra in (("11b per step", {}), ("11c speculative k=16", dict(spec_merges_per_round=16))):
+        trainer = BBPETrainer(BBPETrainerConfig(**cfg, device="cuda", data_shards=4, **extra))
+        zero_kernel_launches()
+        model = trainer.train([fixture])
+        launches = kernel_launches()
+        print(f"{label}, 5 MB at V=2048, 4 data shards: route={trainer.route} "
+              f"merge_s={trainer.last_stats['merge_seconds']} merges={len(model.merges)} "
+              f"{loop_line(trainer.loop_stats)} kernel_launches={launches} [{card}]")
+        check(trainer.route == "sharded_loop", f"{label} took {trainer.route}")
+        check(model.merges == native.merges, f"{label}: merges differ from the native loop")
+        check(model.vocab == native.vocab, f"{label}: vocab differs from the native loop")
+        check(not any(launches.values()), f"{label} launched a kernel: {launches}")
+
+
+def _mp_child(rank: int, port: int, files: list[str], out_dir: str) -> None:
+    """11d: one of two processes on the card, over gloo."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO / "src"))
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+    from yabpe_tpu_torch.dist.ingest import count_pretokens_global
+    from yabpe_tpu_torch.kernels import replay_emit
+    from yabpe_tpu_torch.pretok.ingest import counter_from_raw
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2)
+    result: dict = {}
+    try:
+        t0 = time.perf_counter()
+        table = counter_from_raw(*count_pretokens_global(files, SPECIALS, max_workers=4))
+        result["ingest_s"] = time.perf_counter() - t0
+        result["ingest"] = hashlib.sha256(repr(sorted(table.items())).encode()).hexdigest()
+        cfg = dict(
+            vocab_size=2048, min_frequency=2, max_workers=4,
+            chunk_size_bytes=32 << 20, special_tokens=SPECIALS,
+            align_chunks_to_newline=True, device="cuda", data_shards=4,
+            merge_chunk_size=256,
+        )
+        for name, extra in (("kernel_sharded", dict(use_hbm_kernel=True)), ("sharded_loop", {})):
+            zero_kernel_launches()
+            trainer = BBPETrainer(BBPETrainerConfig(**cfg, **extra))
+            model = trainer.train(files)
+            result[name] = dict(
+                route=trainer.route,
+                merges=hashlib.sha256(repr(model.merges).encode()).hexdigest(),
+                merge_s=trainer.last_stats["merge_seconds"],
+                replay_calls=replay_emit.CALLS["replay_emit_chunk"],
+                replay_launches=replay_emit.LAUNCHES["replay_emit_chunk"],
+                loop={k: v for k, v in trainer.loop_stats.items() if k != "phase_ms"},
+            )
+    finally:
+        dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def multiprocess_run(card: str) -> None:
+    """11d: two processes on the one card over gloo, 4 data shards (two a
+    process): the global ingest, the kernel-sharded route and the sharded
+    loop, against one process."""
+    import hashlib
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens
+
+    files = [str(REPO / "tests" / "fixtures_gpt2" / name)
+             for name in ("bench_5M_realistic.txt", "tinystories_sample_5M.txt")]
+    ingest = count_pretokens(files, SPECIALS, chunk_size_bytes=32 << 20, max_workers=8, align_to_newline=True)
+    want_ingest = hashlib.sha256(repr(sorted(ingest.items())).encode()).hexdigest()
+    native = BBPETrainer(BBPETrainerConfig(
+        vocab_size=2048, min_frequency=2, max_workers=8, chunk_size_bytes=32 << 20,
+        special_tokens=SPECIALS, align_chunks_to_newline=True, use_native_loop=True,
+    )).train(files)
+    want = hashlib.sha256(repr(native.merges).encode()).hexdigest()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_mp_") as out_dir:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_mp_child, args=(r, port, files, out_dir)) for r in range(2)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + 360
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for proc in hung:
+            proc.kill()
+            proc.join()
+        check(not hung, "11d: a process did not finish in 360 s")
+        check(all(p.exitcode == 0 for p in procs), f"11d: exit codes {[p.exitcode for p in procs]}")
+        results = [json.loads((Path(out_dir) / f"rank{r}.json").read_text()) for r in range(2)]
+    print(f"11d two processes over gloo on one card: {time.perf_counter() - t0} s in all [{card}]")
+    for r, res in enumerate(results):
+        check(res["ingest"] == want_ingest, f"11d rank {r}: the global ingest differs")
+        for name, route in (("kernel_sharded", "sharded"), ("sharded_loop", "sharded_loop")):
+            run = res[name]
+            print(f"11d rank {r} {name}: route={run['route']} merge_s={run['merge_s']} "
+                  f"replay_calls={run['replay_calls']} replay_launches={run['replay_launches']} "
+                  f"loop={run['loop']} [{card}]")
+            check(run["route"] == route, f"11d rank {r} {name} took {run['route']}")
+            check(run["merges"] == want, f"11d rank {r} {name}: merges differ from one process's")
+        check(res["kernel_sharded"]["replay_launches"] > 0, f"11d rank {r}: K3 never launched")
+        check(res["sharded_loop"]["replay_launches"] == 0, f"11d rank {r}: the sharded loop launched K3")
+        print(f"11d rank {r}: ingest_s={res['ingest_s']} (host) [{card}]")
+
+
+def cli_run(card: str) -> None:
+    """11e: the CLI on tests/data/large.txt at vocab 1024 on the card, then
+    with --profile-dir; the files equal BBPETrainer.save's."""
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+    from yabpe_tpu_torch.cli import train_bpe
+
+    large = REPO / "tests" / "data" / "large.txt"
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        args = [str(large), "--vocab-size", "1024", "--device", "cuda"]
+        t0 = time.perf_counter()
+        check(train_bpe.main([*args, "-o", str(tmp / "cli")]) == 0, "the CLI failed")
+        t1 = time.perf_counter()
+        check(train_bpe.main([*args, "-o", str(tmp / "cli_prof"), "--profile-dir", str(tmp / "trace")]) == 0,
+              "the CLI failed with --profile-dir")
+        t2 = time.perf_counter()
+        trainer = BBPETrainer(BBPETrainerConfig(
+            vocab_size=1024, min_frequency=2, max_workers=8, chunk_size_bytes=20 << 20,
+            special_tokens=SPECIALS, align_chunks_to_newline=True, device="cuda",
+        ))
+        trainer.train([large])
+        trainer.save(tmp / "api")
+        for out in ("cli", "cli_prof"):
+            for name in ("vocab.json", "merges.txt", "special_tokens.json"):
+                check((tmp / out / name).read_bytes() == (tmp / "api" / name).read_bytes(),
+                      f"11e: {out}/{name} differs from BBPETrainer.save's")
+        trace = tmp / "trace" / "trace.json"
+        check(trace.exists() and trace.stat().st_size > 0, "11e: no trace written")
+        print(f"11e CLI at V=1024: {t1 - t0} s, with --profile-dir {t2 - t1} s, "
+              f"trace {trace.stat().st_size} B, route {trainer.route} [{card}]")
+
+
+def distributed_run(corpus: Path, native_model, card: str) -> None:
+    """Phase 11, each part timed."""
+    for label, fn in (
+        ("11a", lambda: sharded_resume_run(corpus, native_model, card)),
+        ("11b-c", lambda: sharded_loop_runs(card)),
+        ("11d", lambda: multiprocess_run(card)),
+        ("11e", lambda: cli_run(card)),
+    ):
+        t0 = time.perf_counter()
+        fn()
+        print(f"phase {label}: {time.perf_counter() - t0} s [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1056,6 +1336,11 @@ def main() -> int:
     t0 = time.perf_counter()
     device_encode_run(big_native.vocab, big_native.merges, corpus, tok, card)
     print(f"phase 10: {time.perf_counter() - t0:.3f} s")
+
+    # ---- 11. the distributed layer and the CLI
+    t0 = time.perf_counter()
+    distributed_run(corpus, big_native, card)
+    print(f"phase 11: {time.perf_counter() - t0:.3f} s [{card}]")
     corpus_dir.cleanup()
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {

@@ -1,0 +1,1 @@
+"""Command-line entry points: ``yabpe-torch-train`` (cli/train_bpe.py)."""

@@ -36,7 +36,14 @@ Differences from the JAX loop, none of which changes a merge:
   replay, where the JAX loop keeps a second [V, V] copy;
 - cells are scattered by flat int64 index; a cell that must not count
   goes to a spare row V of the table with weight 0;
-- one process holds every shard (``dist/mesh.py``).
+- the validation's exchange is one gather of each shard's logs, flags
+  and cursors, packed, where the JAX loop's shard_map takes the logs as
+  a sharded array.
+
+Across processes (``processes`` > 1, ``dist/mesh.py``), each process
+builds and replays only its own shards, process-major; the selection and
+validation state is replicated, and every process validates the same
+gathered logs, so they all commit the same prefix.
 
 Scope: vocab_cap <= 63,488, word width <= 64, total pair mass < 2^31 (the
 int32 table's exactness, as in ``train/hbm_driver.py``).
@@ -266,11 +273,15 @@ def _validate(
     (p, cut): the merges committed, and whether the commit ended at a
     select that was not exact.
     """
-    g_l = mesh.all_gather([o[1].view(-1) for o in outs])  # [S, rows * 128]
-    g_r = mesh.all_gather([o[2].view(-1) for o in outs])
-    g_w = mesh.all_gather([o[3].view(-1) for o in outs])
-    g_ok = mesh.all_gather([o[4] for o in outs])  # [S, k]
-    g_cursor = mesh.all_gather([o[5] for o in outs])  # [S, k]
+    # ONE exchange a call: each shard's (left | right | weight | ok | cursor)
+    cells = outs[0][1].numel()
+    g = mesh.all_gather([
+        torch.cat([o[1].view(-1), o[2].view(-1), o[3].view(-1), o[4], o[5]])
+        for o in outs
+    ])
+    g_l, g_r, g_w = g[:, :cells], g[:, cells : 2 * cells], g[:, 2 * cells : 3 * cells]
+    g_ok = g[:, 3 * cells : 3 * cells + k]  # [S, k]
+    g_cursor = g[:, 3 * cells + k :]  # [S, k]
     ok_all = (g_ok.amin(dim=0) > 0) & (okf > 0)
     device = okf.device
     valid = torch.ones((), dtype=torch.bool, device=device)
@@ -349,6 +360,8 @@ def run_hbm_sharded_merge_loop(
     stats_out: dict | None = None,
     resume: tuple[np.ndarray, int] | None = None,
     on_chunk=None,
+    processes: int = 1,
+    backend: str | None = None,
 ) -> np.ndarray:
     """Run the merge loop with the replay kernel on every word shard.
 
@@ -367,6 +380,12 @@ def run_hbm_sharded_merge_loop(
     select that was not exact), ``chain_inexact`` (speculative picks that
     were not exact), ``loop_seconds`` and, on the card, ``phase_ms``:
     device-timeline milliseconds of the epochs' phases, summed.
+
+    ``processes`` > 1 spreads the shards over the processes of the
+    initialized default process group (``backend`` "nccl" or "gloo"),
+    process-major: each process builds and replays only its own shards,
+    and the epoch's cell logs and overflow flags go through
+    ``DataMesh.all_gather``; every process passes the same table.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -374,7 +393,11 @@ def run_hbm_sharded_merge_loop(
     _admit(table, vocab_cap)
     k = max(2, int(spec_batch))
     S = data_shards
-    mesh = make_data_mesh(S, device)
+    mesh = make_data_mesh(S, device, processes, backend)
+    if not mesh.local_shards:
+        raise HbmShardedUnsupported(
+            f"process {mesh.rank} holds no shard of the {S}-shard data mesh"
+        )
     base_tokens = list(base_vocab.tokens())
     b0 = len(base_tokens)
     V = vocab_cap
@@ -385,7 +408,8 @@ def run_hbm_sharded_merge_loop(
     cap_rows, cps0 = log_plan(n, words_np.shape[1], S, k, cps)
 
     shards = []
-    for (lo, hi), dev in zip(shard_rows(n, S), mesh.devices):
+    bounds = shard_rows(n, S)
+    for (lo, hi), dev in zip((bounds[d] for d in mesh.local_shards), mesh.devices):
         shards.append((
             torch.tensor(words_np[lo:hi], dtype=torch.int32, device=dev),
             torch.tensor(table.freqs[lo:hi], dtype=torch.int32, device=dev),

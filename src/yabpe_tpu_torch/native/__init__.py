@@ -135,6 +135,10 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
             ctypes.c_char_p, _P_I32, ctypes.c_int32,
         ]
+        lib.yabpe_counter_add_table.restype = None
+        lib.yabpe_counter_add_table.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, _P_I32, _P_I64, ctypes.c_int64,
+        ]
         lib.yabpe_counter_merge.restype = None
         lib.yabpe_counter_merge.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.yabpe_counter_unique.restype = ctypes.c_int64
@@ -444,6 +448,16 @@ class NativeCounter:
             out.append(words[off : off + length])
             off += length
         return out
+
+    def add_table(self, blob: bytes, lens: np.ndarray, counts: np.ndarray) -> None:
+        """Fold in a raw exported word table (another process's, in
+        ``dist/ingest.py``): its words in order, each with its count."""
+        assert self._h is not None
+        lens = np.ascontiguousarray(lens, dtype=np.int32)
+        counts = np.ascontiguousarray(counts, dtype=np.int64)
+        self._lib.yabpe_counter_add_table(
+            self._h, blob, _i32p(lens), counts.ctypes.data_as(_P_I64), len(lens)
+        )
 
     def merge(self, other: "NativeCounter") -> None:
         assert self._h is not None and other._h is not None

@@ -21,6 +21,10 @@ repairs lazily.
 - :func:`merge_step_big`, :func:`merge_chunk_big` and
   :func:`run_bigvocab_merge_loop` are the engine, with ``resume`` and
   ``on_chunk`` as in the JAX driver (``:226-279``).
+- :func:`lazy_select_rows_async` runs a fixed number of those rounds on
+  the device and returns the verdict as a flag, for the sharded loops
+  (``dist/sharded.py``, ``dist/speculative.py``), which read it with
+  what else the step reads, in one host sync;
 - :func:`lazy_select_2d` is the data-sharded loop's select
   (``dist/hbm_sharded.py``), which must not wait on the host: it runs a
   fixed number of rounds, each of which re-scans ``width`` rows at once,
@@ -56,6 +60,8 @@ from yabpe_tpu_torch.train.state import (
 #: Verify rounds and rows re-scanned per round of :func:`lazy_select_2d`.
 VERIFY_ROUNDS = 2
 VERIFY_WIDTH = 32
+#: Rounds of :func:`lazy_select_rows_async` before its verdict is read.
+SELECT_ROUNDS = 4
 
 
 def lazy_select_2d(
@@ -141,6 +147,35 @@ def lazy_select_rows(
     row = table.index_select(0, a.view(1))[0]
     b = torch.where(row == m, lex_cols, -1).argmax()
     return m, a.int(), b.int(), row_max
+
+
+def lazy_select_rows_async(
+    table_flat: torch.Tensor,
+    row_max: torch.Tensor,
+    lex_rows: torch.Tensor,
+    lex_cols: torch.Tensor,
+    row_width: int,
+    rounds: int = SELECT_ROUNDS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`lazy_select_rows` for ``rounds`` rounds on the device, with no
+    host sync: returns 0-d tensors (m, a, b, done).
+
+    A round after the loop has converged changes nothing (it picks the
+    same row and writes back its own tight bound), so when ``done`` is
+    true, (m, a, b) and ``row_max`` are exactly the JAX ``while_loop``'s;
+    when it is false, :func:`lazy_select_rows` on the same ``row_max``
+    takes the loop on from where it stopped.
+    """
+    table = table_flat.view(-1, row_width)
+    for _ in range(rounds):
+        m = row_max.max()
+        a = torch.where(row_max == m, lex_rows, -1).argmax()
+        true_max = table.index_select(0, a.view(1))[0].max()
+        row_max.index_copy_(0, a.view(1), true_max.view(1))
+    done = true_max == m
+    row = table.index_select(0, a.view(1))[0]
+    b = torch.where(row == m, lex_cols, -1).argmax()
+    return m, a.int(), b.int(), done
 
 
 def lazy_select(
@@ -245,12 +280,14 @@ def run_bigvocab_merge_loop(
 
 
 __all__ = [
+    "SELECT_ROUNDS",
     "VERIFY_ROUNDS",
     "VERIFY_WIDTH",
     "BigState",
     "lazy_select",
     "lazy_select_2d",
     "lazy_select_rows",
+    "lazy_select_rows_async",
     "merge_chunk_big",
     "merge_step_big",
     "run_bigvocab_merge_loop",

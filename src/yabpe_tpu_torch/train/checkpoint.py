@@ -11,8 +11,9 @@ The engines resume by replaying the record onto the freshly ingested word
 table: :func:`resume_state` here for the fallback engines
 (train/incremental.py, train/bigvocab.py), the merge kernel's replay mode
 for its driver (train/hbm_driver.py), and replayed epochs for the
-data-sharded loop (dist/hbm_sharded.py). The port runs in one process,
-so there is no process-index test before a save.
+data-sharded loops (dist/hbm_sharded.py, dist/sharded.py). Under
+``torch.distributed`` every process holds the same record and only
+process 0 writes it.
 """
 
 from __future__ import annotations
@@ -50,7 +51,11 @@ def save_checkpoint(
 ) -> None:
     """Persist the merge record atomically: the npz goes to a tmp file
     named by the pid, so no two writers interleave inside one file, and
-    ``replace`` puts it in place."""
+    ``replace`` puts it in place. Processes other than 0 of a
+    ``torch.distributed`` run write nothing."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        if torch.distributed.get_rank() != 0:
+            return
     path = Path(ckpt_dir)
     path.mkdir(parents=True, exist_ok=True)
     tmp = path / f"merge_state.tmp.{os.getpid()}.npz"
@@ -90,11 +95,18 @@ def load_checkpoint(
 
 
 def _replay(words: torch.Tensor, records: np.ndarray) -> torch.Tensor:
-    """Apply a [k, 3] (left, right, new_sym) record to the word table; a
-    record with a negative left id is skipped."""
+    """Apply a [k, 3] (left, right, new_sym) record to the word table **in
+    place**; a record with a negative left id is skipped. Each merge
+    rewrites only the rows that hold its pair (a row without it is left as
+    it is by ``apply_pair_merge``), found with one host sync a merge."""
     for left, right, new_sym in records.tolist():
-        if left >= 0:
-            words = apply_pair_merge(words, left, right, new_sym)
+        if left < 0:
+            continue
+        lw, rw = words[:, :-1], words[:, 1:]
+        rows = ((lw == left) & (rw == right) & (lw >= 0)).any(dim=1).nonzero()[:, 0]
+        if rows.numel():
+            merged = apply_pair_merge(words.index_select(0, rows), left, right, new_sym)
+            words.index_copy_(0, rows, merged)
     return words
 
 

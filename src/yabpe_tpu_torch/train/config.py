@@ -2,7 +2,7 @@
 
 Counterpart of yabpe_tpu/train/config.py: field-for-field parity with the
 reference dataclass (its trainer.py:17-38), the engine knobs the port
-acts on so far, with the JAX package's defaults, and ``device``. The JAX
+acts on, with the JAX package's defaults, and ``device``. The JAX
 package's ``ingest_processes`` has no counterpart here. ``seed`` is kept
 for interface compatibility; training is fully deterministic and never
 uses it.
@@ -34,12 +34,16 @@ class BBPETrainerConfig:
         align_chunks_to_newline: end ingestion chunks at newlines so
             pre-tokens never straddle chunk boundaries (off for strict
             reference parity).
-        data_shards: word shards of the data-sharded merge loop
-            (dist/hbm_sharded.py), one process holding all of them; above
-            1 it needs ``use_hbm_kernel=True``, else NotImplementedError.
-        vocab_shards: vocabulary sharding; above 1 it is not ported yet
-            and raises NotImplementedError.
-        max_pair_table_bytes: guard rail for the dense [V, V] count table.
+        data_shards: if > 1, shard the word table over this many data
+            shards: the kernel-sharded loop (dist/hbm_sharded.py) with
+            ``use_hbm_kernel=True``, else the sharded loop
+            (dist/sharded.py); under ``torch.distributed`` the shards are
+            spread over the processes. None/1 = one device.
+        vocab_shards: if > 1 (with data_shards), keep the dense pair-count
+            table as slabs of left-symbol rows ([V/nv, V] each) in the
+            sharded loop.
+        max_pair_table_bytes: guard rail for the dense [V, V] count table
+            (per slab, after vocab sharding).
         count_strategy: how the fallback engines count pairs: "dense",
             "matmul" (the JAX package's MXU layout of the same counts; it
             must be exact, every possible count below 2^24, or raises
@@ -68,7 +72,12 @@ class BBPETrainerConfig:
             (False: the fallback engines run them). Results are identical
             either way.
         spec_merges_per_round: merges per speculative epoch of the
-            data-sharded loop; 0 or 1 means the default of 16.
+            sharded loops. The kernel-sharded loop always runs epochs: 0 or
+            1 there means 16. The sharded loop runs them (1-D meshes only;
+            ignored with a warning when vocab_shards > 1) for values > 1;
+            0 means 16 under ``torch.distributed`` with more than one
+            process and off in one process; 1 is off. Results are
+            identical either way.
         hbm_sharded_cps: cell-log capacity of the data-sharded loop, in
             rows of 128 cells per chain step past the first; a tuning knob
             (an overflowing step is never committed), not a correctness one.

@@ -136,6 +136,7 @@ def pack_merge_delta(
     cap: int,
     vocab_cap: int,
     dtype: torch.dtype = torch.int32,
+    slots: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One merge's sparse count delta at a fixed buffer capacity.
 
@@ -143,10 +144,11 @@ def pack_merge_delta(
     merge to them, writes the merged rows back into ``words`` **in
     place**, and returns the old/new adjacent-pair (keys, weights): old
     pairs at -freq, new at +freq. Exact only when the affected rows fit
-    ``cap``.
+    ``cap``. ``slots`` is a precomputed :func:`_affected_slots` result
+    (the speculative epochs keep it to replay a partial commit).
     """
     n = words.shape[0]
-    idx_buf, val_buf = _affected_slots(affected, cap)
+    idx_buf, val_buf = slots if slots is not None else _affected_slots(affected, cap)
     safe_idx = idx_buf.clamp(max=n - 1).long()
     rows = words.index_select(0, safe_idx)
     f = torch.where(val_buf, freqs.index_select(0, safe_idx), 0)
@@ -155,13 +157,21 @@ def pack_merge_delta(
     new_rows = apply_pair_merge(rows, left, right, new_sym)
     new_keys, new_w = _pair_delta(new_rows, f, vocab_cap, +1, dtype)
 
-    # Valid slots come first, so an empty slot rewrites slot 0's row with
-    # slot 0's value: every write to a row carries the same bytes.
-    scatter_rows = torch.where(val_buf[:, None], new_rows, rows)
-    target = torch.where(val_buf, safe_idx, safe_idx[0])
-    scatter_rows = torch.where(val_buf[:, None], scatter_rows, scatter_rows[0])
-    words.index_copy_(0, target, scatter_rows)
+    write_rows(words, safe_idx, val_buf, torch.where(val_buf[:, None], new_rows, rows))
     return torch.cat([old_keys, new_keys]), torch.cat([old_w, new_w])
+
+
+def write_rows(
+    words: torch.Tensor, safe_idx: torch.Tensor, val_buf: torch.Tensor, rows: torch.Tensor
+) -> None:
+    """``words[safe_idx[i]] = rows[i]`` for the valid slots, **in place**.
+
+    Valid slots come first, so an empty slot rewrites slot 0's row with
+    slot 0's value: every write to a row carries the same bytes (the JAX
+    scatter drops the empty slots instead).
+    """
+    target = torch.where(val_buf, safe_idx, safe_idx[0])
+    words.index_copy_(0, target, torch.where(val_buf[:, None], rows, rows[0]))
 
 
 def tiered_count_update(
@@ -366,4 +376,5 @@ __all__ = [
     "run_incremental_merge_loop",
     "start_engine",
     "tiered_count_update",
+    "write_rows",
 ]

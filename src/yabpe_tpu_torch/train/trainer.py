@@ -2,15 +2,20 @@
 
 Counterpart of yabpe_tpu/train/trainer.py, with the reference library's
 public surface (BBPETrainer.train/save, empty-corpus short-circuit, input
-validation). Routing, which in this slice of the port is explicit:
+validation). Routing, which in the port is explicit:
 
 - ``backend="numpy"``: the host oracle (train/reference_loop.py);
 - ``use_native_loop=True``: the native C++ host merge loop;
-- otherwise the device route on ``config.device``: with ``data_shards`` >
-  1 and ``use_hbm_kernel=True``, the data-sharded loop
+- otherwise the device route on ``config.device``. With ``data_shards``
+  > 1, as the JAX trainer routes (``:186-240``): the kernel-sharded loop
   (dist/hbm_sharded.py, the replay kernel kernels/replay_emit.py on every
-  word shard); with one shard, as the JAX trainer's
-  ``_run_single_device`` (``:329-444``) routes, in this order:
+  word shard; route ``"sharded"``) with ``use_hbm_kernel=True`` and within
+  its limits (:meth:`BBPETrainer._should_use_hbm_sharded`), else the
+  sharded loop of dist/sharded.py over ``data_shards`` x ``vocab_shards``
+  (route ``"sharded_loop"``), which also takes over, from the start, a run
+  that the kernel-sharded loop rejects mid-run (HbmShardedUnsupported).
+  With one shard, as the JAX trainer's ``_run_single_device``
+  (``:329-444``) routes, in this order:
   1. the small-vocabulary kernel K1 (kernels/fused_loop.py) for problems
      within its admission and the kernels' limits, without
      ``checkpoint_dir`` (:meth:`BBPETrainer._should_use_fused`);
@@ -21,19 +26,22 @@ validation). Routing, which in this slice of the port is explicit:
   4. else the incremental engine (train/incremental.py); both are the JAX
      package's XLA engines in torch ops, on the same device.
 
-The route is chosen before the run and logged (``route`` keeps it); no
-kernel failure falls through to an engine. Every route gives the same
-merges. The JAX package's crossover model was measured on a TPU and is not
-carried over; measurements on the GPU will set the default. The device
-route never falls back to the CPU: no CUDA device, a failed build of the
-native scanner or of a kernel, or a state past the device's free memory
-raises; where the JAX trainer restarts a problem that the data-sharded
-loop rejects on its XLA sharded loop, which is not ported, this one lets
-the error rise.
+Under ``torch.distributed`` with more than one process (the backend is
+the one the process group was initialized with, dist/mesh.py), ingest
+goes through dist/ingest.py (each process reads its share of the files,
+the tables are unioned on every process) and the sharded loops spread
+their data shards over the processes.
+
+The route is chosen before the run and logged (``route`` keeps it). Every
+route gives the same merges. The JAX package's crossover model was
+measured on a TPU and is not carried over; measurements on the GPU will
+set the default. The device route never falls back to the CPU: no CUDA
+device, a failed build of the native scanner or of a kernel, or a state
+past the device's free memory raises.
 
 ``checkpoint_dir`` saves the merge record every ``checkpoint_every_chunks``
 chunks and resumes from it (train/checkpoint.py) on K2 (its replay mode),
-the engines and the data-sharded loop; a checkpointed run never takes K1,
+the engines and both sharded loops; a checkpointed run never takes K1,
 as in the JAX trainer.
 """
 
@@ -47,6 +55,7 @@ import numpy as np
 
 from yabpe_tpu_torch.core.vocab import Vocab
 from yabpe_tpu_torch.core.wordtable import WordTable
+from yabpe_tpu_torch.dist.mesh import process_info
 from yabpe_tpu_torch.io.native import save_model
 from yabpe_tpu_torch.pretok.ingest import count_pretokens, count_pretokens_raw
 from yabpe_tpu_torch.train.config import BBPETrainerConfig
@@ -65,11 +74,13 @@ class BBPETrainer:
         self._vocab: dict[bytes, int] = {}
         self._merges: list[tuple[bytes, bytes]] = []
         self.last_stats: dict[str, float] = {}
-        #: The data-sharded loop's ``stats_out`` for the last train() that
-        #: ran it (epochs, fallbacks, ...), else empty.
+        #: The sharded loops' ``stats_out`` for the last train() that ran
+        #: one (epochs, fallbacks, host syncs, ...), else empty.
         self.loop_stats: dict = {}
         #: The merge loop the last train() took: "oracle", "native", "K1",
-        #: "K2", "sharded", "bigvocab" or "incremental" ("" before any).
+        #: "K2", "sharded" (the kernel-sharded loop), "sharded_loop" (the
+        #: data x vocab sharded loop), "bigvocab" or "incremental" (""
+        #: before any).
         self.route: str = ""
 
     def train(self, files: Sequence[str | Path]) -> BBPEModel:
@@ -101,6 +112,12 @@ class BBPETrainer:
             counter = count_pretokens(
                 files, cfg.special_tokens, require_native=False, **ingest_args
             )
+        elif process_info()[0] > 1:
+            # each process ingests its share of the files; the tables are
+            # unioned identically on every process (dist/ingest.py)
+            from yabpe_tpu_torch.dist.ingest import count_pretokens_global
+
+            raw = count_pretokens_global(files, cfg.special_tokens, **ingest_args)
         else:
             raw = count_pretokens_raw(files, cfg.special_tokens, **ingest_args)
         t_ingest = time.perf_counter() - t0
@@ -175,21 +192,9 @@ class BBPETrainer:
         )
 
     def _check_config(self) -> None:
-        """Raise for what this slice of the port does not cover."""
         cfg = self.config
         if cfg.backend not in ("torch", "numpy"):
             raise ValueError(f"unknown backend {cfg.backend!r}")
-        if (cfg.vocab_shards or 1) > 1:
-            raise NotImplementedError(
-                "vocabulary-sharded training (vocab_shards > 1) is not "
-                "ported yet (ROADMAP.md, queue 1 item 6: distributed)"
-            )
-        if (cfg.data_shards or 1) > 1 and cfg.use_hbm_kernel is not True:
-            raise NotImplementedError(
-                "data_shards > 1 runs only the data-sharded kernel loop "
-                "(use_hbm_kernel=True); the XLA sharded loop is not ported "
-                "yet (ROADMAP.md, queue 1 item 6: distributed)"
-            )
 
     def _train_device(
         self, counter, base: Vocab
@@ -210,7 +215,7 @@ class BBPETrainer:
         if num_merges == 0:
             return base, []
         vocab_cap = max(cfg.vocab_size, len(base))
-        table_bytes = 4 * vocab_cap * vocab_cap
+        table_bytes = 4 * vocab_cap * vocab_cap // max(1, cfg.vocab_shards)
         if table_bytes > cfg.max_pair_table_bytes:
             raise ValueError(
                 f"dense pair table would need {table_bytes} bytes for "
@@ -218,34 +223,62 @@ class BBPETrainer:
                 "vocab_size"
             )
         table = WordTable.from_counter(counter)
-        resume, saver = self._checkpoint_hooks()
         if (cfg.data_shards or 1) > 1:
-            self._check_hbm_sharded(table, vocab_cap)
-            from yabpe_tpu_torch.dist.hbm_sharded import (
-                run_hbm_sharded_merge_loop,
-            )
-
-            self._log_route("sharded")
-            spec = cfg.spec_merges_per_round
-            merges_ids = run_hbm_sharded_merge_loop(
-                table,
-                base,
-                vocab_cap=vocab_cap,
-                num_merges=num_merges,
-                min_frequency=cfg.min_frequency,
-                data_shards=cfg.data_shards,
-                spec_batch=spec if spec > 1 else 16,
-                cps=cfg.hbm_sharded_cps,
-                device=device,
-                stats_out=self.loop_stats,
-                resume=resume,
-                on_chunk=saver,
-            )
+            merges_ids = self._run_sharded(table, base, vocab_cap, num_merges, device)
         else:
+            resume, saver = self._checkpoint_hooks()
             merges_ids = self._run_single_device(
                 table, base, vocab_cap, num_merges, device, resume, saver
             )
         return train_state.merges_to_bytes(merges_ids, base)
+
+    def _run_sharded(
+        self, table: WordTable, base: Vocab, vocab_cap: int, num_merges: int, device,
+    ) -> np.ndarray:
+        """``data_shards`` > 1: the kernel-sharded loop where it is asked for
+        and admits the problem, else (and after it rejects the problem
+        mid-run) the data x vocab sharded loop, as the JAX trainer does."""
+        from yabpe_tpu_torch.dist.hbm_sharded import (
+            HbmShardedUnsupported,
+            run_hbm_sharded_merge_loop,
+        )
+        from yabpe_tpu_torch.dist.sharded import run_sharded_merge_loop
+
+        cfg = self.config
+        processes, _, backend = process_info()
+        common = dict(
+            vocab_cap=vocab_cap, num_merges=num_merges,
+            min_frequency=cfg.min_frequency, data_shards=cfg.data_shards,
+            device=device, processes=processes, backend=backend,
+            stats_out=self.loop_stats,
+        )
+        spec = cfg.spec_merges_per_round
+        if self._should_use_hbm_sharded(table, vocab_cap, processes):
+            resume, saver = self._checkpoint_hooks()
+            self._log_route("sharded")
+            try:
+                return run_hbm_sharded_merge_loop(
+                    table, base, spec_batch=spec if spec > 1 else 16,
+                    cps=cfg.hbm_sharded_cps, resume=resume, on_chunk=saver,
+                    **common,
+                )
+            except HbmShardedUnsupported as e:
+                # deterministic loops: a restart from scratch on the
+                # sharded loop gives the same merges
+                _LOG.warning(
+                    "kernel-sharded loop unsupported mid-run (%s); falling "
+                    "back to the sharded loop", e,
+                )
+                self.loop_stats.clear()
+        resume, saver = self._checkpoint_hooks()
+        if spec == 0 and processes > 1:
+            spec = 16  # auto: latency-tolerant epochs across processes
+        self._log_route("sharded_loop")
+        return run_sharded_merge_loop(
+            table, base, vocab_shards=cfg.vocab_shards,
+            chunk_size=cfg.merge_chunk_size, resume=resume, on_chunk=saver,
+            spec_batch=spec, **common,
+        )
 
     def _run_single_device(
         self, table: WordTable, base: Vocab, vocab_cap: int, num_merges: int,
@@ -333,23 +366,34 @@ class BBPETrainer:
 
         return resume, saver
 
-    def _check_hbm_sharded(self, table: WordTable, vocab_cap: int) -> None:
-        """Raise ValueError for a problem past the data-sharded loop's
-        limits, as the JAX trainer's ``_should_use_hbm_sharded`` does for
-        ``use_hbm_kernel=True``; this trainer runs in one process."""
+    def _should_use_hbm_sharded(
+        self, table: WordTable, vocab_cap: int, processes: int
+    ) -> bool:
+        """Route a sharded run to the kernel-sharded loop: only with
+        ``use_hbm_kernel=True`` and one vocab shard, as in the JAX trainer
+        (``:446-483``). Past the loop's limits it raises ValueError, unless
+        the data shards are too few to span the processes, which goes to
+        the sharded loop."""
         from yabpe_tpu_torch.dist.hbm_sharded import hbm_sharded_applicable
 
+        cfg = self.config
+        if cfg.use_hbm_kernel is not True or (cfg.vocab_shards or 1) > 1:
+            return False
         if not hbm_sharded_applicable(
             int(table.words.shape[0]),
             int(table.words.shape[1]),
             vocab_cap,
-            data_shards=self.config.data_shards,
+            data_shards=cfg.data_shards,
+            processes=processes,
         ):
+            if processes > cfg.data_shards:
+                return False  # not enough shards to span the processes
             raise ValueError(
                 "use_hbm_kernel=True with data_shards > 1 but the problem "
                 "exceeds the sharded-HBM loop's limits (vocab <= 63488, "
                 "word width <= 64, per-shard log plan)"
             )
+        return True
 
     def _should_use_fused(
         self, table: WordTable, vocab_cap: int, limits: str | None

@@ -570,3 +570,30 @@ def test_device_encode_batch_and_file_on_cuda_match_host(tmp_path):
     want = np.asarray(tok.encode(path.read_text(encoding="utf-8")), dtype=np.int32)
     assert np.array_equal(tok.encode_file(path, chunk_bytes=8192, device=True), want)
     assert np.array_equal(tok.encode_file(path, chunk_bytes=8192), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(2, 2, 0), (1, 4, 0), (4, 1, 0), (4, 1, 8), (2, 1, 16)],
+                         ids=["2x2", "1x4", "4x1", "4x1_spec8", "2x1_spec16"])
+def test_sharded_loop_on_cuda_matches_cpu(layout):
+    """The data x vocab loop and the speculative loop (dist/sharded.py,
+    dist/speculative.py) on the card: the merge record and the run's
+    counters equal the same loop's on the CPU."""
+    _need_cuda()
+    from yabpe_tpu_torch.dist.sharded import run_sharded_merge_loop
+
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    base = Vocab.base(SPECIALS)
+    d, v, s = layout
+    runs = []
+    for device in ("cuda", "cpu"):
+        stats: dict = {}
+        merges = run_sharded_merge_loop(
+            table, base, vocab_cap=700, num_merges=700 - len(base), min_frequency=1,
+            data_shards=d, vocab_shards=v, spec_batch=s, chunk_size=128,
+            device=device, stats_out=stats,
+        )
+        runs.append((merges, {k: v for k, v in stats.items() if not k.endswith("_seconds")}))
+    assert np.array_equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
+    assert (runs[0][0][:, 0] >= 0).sum() == 700 - len(base)

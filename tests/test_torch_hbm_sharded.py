@@ -203,7 +203,8 @@ def test_plan_and_admission_match_jax():
     # cps0 as the JAX loop plans it: 2 log rows per 128 words of a shard
     assert hbm_sharded.log_plan(388096, 16, 4, 16, 64)[1] == 1520
     assert hbm_sharded.log_plan(1024, 16, 4, 8, 64)[1] == 256
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # more than one process needs an explicit backend and a process group
+    with pytest.raises(ValueError, match="explicit backend"):
         make_data_mesh(4, "cpu", processes=2)
 
 
@@ -313,12 +314,16 @@ def test_trainer_route_matches_single_device():
 
 
 def test_trainer_route_raises_where_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        BBPETrainer(BBPETrainerConfig(vocab_size=300, device="cpu", data_shards=2)).train([DATA / "sample.txt"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        BBPETrainer(BBPETrainerConfig(
-            vocab_size=300, device="cpu", data_shards=2, use_hbm_kernel=True, vocab_shards=2,
-        )).train([DATA / "sample.txt"])
+    """Sharded runs the kernel-sharded loop does not take (no
+    use_hbm_kernel=True, or vocab shards) run the sharded loop, as in the
+    JAX trainer; past the kernel-sharded loop's limits, and on a missing
+    card, it raises."""
+    kw = dict(vocab_size=300, device="cpu", min_frequency=1)
+    single = BBPETrainer(BBPETrainerConfig(**kw)).train([DATA / "sample.txt"])
+    for extra in (dict(data_shards=2), dict(data_shards=2, use_hbm_kernel=True, vocab_shards=2)):
+        trainer = BBPETrainer(BBPETrainerConfig(**kw, **extra))
+        assert trainer.train([DATA / "sample.txt"]).merges == single.merges
+        assert trainer.route == "sharded_loop"
     with pytest.raises(ValueError, match="sharded-HBM loop's limits"):
         BBPETrainer(BBPETrainerConfig(
             vocab_size=64000, device="cpu", data_shards=2, use_hbm_kernel=True,

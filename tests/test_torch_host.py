@@ -45,7 +45,9 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "yabpe_tpu_torch.kernels.select, yabpe_tpu_torch.train.state, "
         "yabpe_tpu_torch.train.incremental, yabpe_tpu_torch.train.bigvocab, "
         "yabpe_tpu_torch.train.checkpoint, yabpe_tpu_torch.tok.parallel_encode, "
-        "yabpe_tpu_torch.tok.device_encode, tempfile, pathlib\n"
+        "yabpe_tpu_torch.tok.device_encode, yabpe_tpu_torch.dist.sharded, "
+        "yabpe_tpu_torch.dist.ingest, yabpe_tpu_torch.dist.speculative, "
+        "yabpe_tpu_torch.cli.train_bpe, yabpe_tpu_torch.utils.profiling, tempfile, pathlib\n"
         "tok = yabpe_tpu_torch.BBPETokenizer("
         "{b'a': 0, b'b': 1, b' ': 2, b'ab': 3, b' ab': 4}, "
         "[(b'a', b'b'), (b' ', b'ab')], [])\n"

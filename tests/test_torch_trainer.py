@@ -131,15 +131,99 @@ def test_save_matches_jax_trainer_files(tmp_path):
 
 
 def test_not_ported_configurations_raise(tmp_path):
-    for kw, item in [
-        (dict(data_shards=2), "item 6"),
-        (dict(vocab_shards=2), "item 6"),
-    ]:
-        cfg = BBPETrainerConfig(vocab_size=300, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            BBPETrainer(cfg).train([DATA / "sample.txt"])
+    """Every layout the JAX trainer takes trains, with the JAX trainer's
+    merges (data shards, vocab shards, both); an unknown backend raises."""
+    for kw in (dict(data_shards=2), dict(vocab_shards=2), dict(data_shards=2, vocab_shards=2)):
+        cfg = dict(vocab_size=300, min_frequency=1, special_tokens=SPECIALS, **kw)
+        got = BBPETrainer(BBPETrainerConfig(device="cpu", **cfg)).train([DATA / "sample.txt"])
+        want = JaxTrainer(JaxConfig(**cfg)).train([DATA / "sample.txt"])
+        assert got.merges == want.merges and got.vocab == want.vocab, kw
     with pytest.raises(ValueError, match="backend"):
         BBPETrainer(BBPETrainerConfig(backend="jax")).train([DATA / "sample.txt"])
+
+
+@pytest.mark.parametrize(
+    "layout,route",
+    [
+        (dict(data_shards=2), "sharded_loop"),
+        (dict(data_shards=2, vocab_shards=2), "sharded_loop"),
+        (dict(data_shards=4, spec_merges_per_round=8), "sharded_loop"),
+        (dict(data_shards=2, use_hbm_kernel=True), "sharded"),
+        (dict(data_shards=2, vocab_shards=2, use_hbm_kernel=True), "sharded_loop"),
+    ],
+    ids=["data", "data_vocab", "speculative", "kernel_sharded", "kernel_vocab"],
+)
+def test_sharded_routes(layout, route):
+    """The sharded routes, named apart, give the JAX trainer's merges (its
+    sharded loop, on the same data and vocab shards)."""
+    cfg = dict(vocab_size=420, min_frequency=2, special_tokens=SPECIALS, max_workers=1,
+               merge_chunk_size=64)
+    trainer = BBPETrainer(BBPETrainerConfig(device="cpu", **cfg, **layout))
+    got = trainer.train([DATA / "large.txt"])
+    assert trainer.route == route
+    jax_layout = {k: v for k, v in layout.items() if k != "use_hbm_kernel"}
+    want = JaxTrainer(JaxConfig(**cfg, **jax_layout)).train([DATA / "large.txt"])
+    assert got.merges == want.merges and got.vocab == want.vocab
+
+
+def _abc_corpus(path: Path) -> Path:
+    """3,000 seeded words of 20-49 letters over {a, b, c}: the first
+    merge's cells fill more than 32 log rows of a shard."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    words = ["".join(rng.choice(list("abc"), size=int(rng.integers(20, 50)))) for _ in range(3000)]
+    path.write_text("\n".join(" ".join(words[i : i + 10]) for i in range(0, 3000, 10)))
+    return path
+
+
+def test_restart_after_the_kernel_sharded_loop_rejects_the_run(tmp_path):
+    """A cell-log plan that leaves the overflow fallback 32 rows: the
+    kernel-sharded loop raises HbmShardedUnsupported at its first merge
+    (the fallback's largest log), and the trainer restarts on the sharded
+    loop, with the merges of the JAX trainer's sharded loop, where the JAX
+    trainer restarts such a run (its kernel-sharded loop is left out here:
+    in interpret mode its 74,000-row logs take 35-40 s)."""
+    from yabpe_tpu_torch.core.vocab import Vocab
+    from yabpe_tpu_torch.core.wordtable import WordTable
+    from yabpe_tpu_torch.dist.hbm_sharded import HbmShardedUnsupported, run_hbm_sharded_merge_loop
+    from yabpe_tpu_torch.kernels.replay_emit import max_log_rows
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens
+
+    corpus = _abc_corpus(tmp_path / "abc.txt")
+    table = WordTable.from_counter(count_pretokens([corpus], [], max_workers=1))
+    nrs = -(-table.words.shape[0] // (2 * 128) // 8) * 8
+    cps = max_log_rows(nrs, (table.width + 2) * 128) - 32
+    with pytest.raises(HbmShardedUnsupported, match="largest cell log"):
+        run_hbm_sharded_merge_loop(
+            table, Vocab.base([]), vocab_cap=300, num_merges=44, min_frequency=1,
+            data_shards=2, spec_batch=2, cps=cps, device="cpu",
+        )
+    cfg = dict(vocab_size=300, min_frequency=1, special_tokens=[], max_workers=1,
+               data_shards=2, use_hbm_kernel=True, hbm_sharded_cps=cps,
+               spec_merges_per_round=2)
+    trainer = BBPETrainer(BBPETrainerConfig(device="cpu", **cfg))
+    got = trainer.train([corpus])
+    assert trainer.route == "sharded_loop"
+    assert trainer.loop_stats["full_recounts"] > 0
+    del cfg["use_hbm_kernel"], cfg["hbm_sharded_cps"]
+    want = JaxTrainer(JaxConfig(**cfg)).train([corpus])
+    assert got.merges == want.merges and len(got.merges) == 44
+
+
+def test_pair_table_guard_divides_by_vocab_shards():
+    """The dense-table guard counts one slab, as the JAX trainer's does:
+    a limit between the slab and the whole table refuses one vocab shard
+    and admits two."""
+    cfg = dict(vocab_size=300, min_frequency=1, max_workers=1, special_tokens=SPECIALS,
+               data_shards=2, max_pair_table_bytes=4 * 300 * 300 // 2)
+    with pytest.raises(ValueError, match="dense pair table"):
+        BBPETrainer(BBPETrainerConfig(device="cpu", **cfg)).train([DATA / "sample.txt"])
+    with pytest.raises(ValueError, match="dense pair table"):
+        JaxTrainer(JaxConfig(**cfg)).train([DATA / "sample.txt"])
+    got = BBPETrainer(BBPETrainerConfig(device="cpu", vocab_shards=2, **cfg)).train([DATA / "sample.txt"])
+    want = JaxTrainer(JaxConfig(vocab_shards=2, **cfg)).train([DATA / "sample.txt"])
+    assert got.merges == want.merges
 
 
 def test_default_device_is_cuda_and_never_falls_back():
