@@ -42,7 +42,20 @@ package. Phases, none of whose failures is caught:
    cluster-size query and the launch itself, beside the first design's
    library load and first call; then every chunk is timed by
    CUDA events (us per step early and late), the first one beside the
-   bytes it needs at least and the first design's time for it;
+   bytes it needs at least and the first design's time for it; the
+   TinyStories us per step is printed beside the 8.3-9.1 us that
+   PERF.md §6 records for the narrow kernel before it took wide words;
+5w. K1 on words past 64 symbols: tests/data/large.txt plus 2,000 lines of
+   65-300-byte pre-tokens (scripts/wide_lines.py, seed 0), a table of
+   1,024 rows x 304, against the twin chunk by chunk as in phase 5, at
+   vocab 1024 (the token bytes in device memory: they do not fit CTA 0's
+   shared memory) and at vocab 320 in both layouts (shared, then the
+   global one forced); prints the kernel's ms per chunk and us per step,
+   the twin's ms and the bound by bytes from the twin's tally. Then the
+   trainer on TinyStories 5 MB plus 2,000 such lines at vocab 1000
+   (min_frequency 1, one special) with the launch counts zeroed: route K1,
+   K1 launched and no other kernel, merges and vocab equal to the native
+   loop's;
 6. the small-vocabulary main path: the settings of the JAX package's
    snapshot tests/_snapshots/test_train_bpe_special_tokens.pkl
    (TinyStories 5 MB, vocab 1000) through BBPETrainer(...).train(files)
@@ -90,14 +103,17 @@ package. Phases, none of whose failures is caught:
       both runs' merge seconds and the replayed steps;
    c. words past 64 symbols on the card: the 5 MB realistic fixture plus
       2,000 lines of 65-300-byte pre-tokens (scripts/wide_lines.py, seed
-      0) at vocab 4,096, min_frequency 2 (the bigvocab engine), and
-      tests/data/large.txt plus 2,000 such lines (seed 1) at vocab 1024,
-      min_frequency 2 (the incremental engine), each with the K1, K2 and
-      K3 launch counts zeroed before and still 0 after; the merges and
-      vocab must equal the native loop's; prints the merge seconds and
-      the us per merge. Cuts: vocab 4,096, not 32,000, because these
-      engines hold no kernel of their own and are plain torch ops; the
-      chip time goes to 9b;
+      0) at vocab 4,096, min_frequency 2 (the bigvocab engine);
+      tests/data/large.txt plus 2,000 such lines (seed 0; 1,024 rows x
+      304) at vocab 1024, min_frequency 2, through K1 (which must launch),
+      and again with use_fused_kernel=False (the incremental engine); and
+      large.txt plus 2,000 lines of seed 1 (1,027 words, 2,048 rows, past
+      K1's admission at 1024, as in the JAX trainer) on the incremental
+      engine; each with the K1, K2 and K3 launch counts zeroed before and
+      read after (on an engine all 0); the merges and vocab must equal the
+      native loop's; prints the merge seconds and the us per merge. Cuts:
+      vocab 4,096, not 32,000, because the engines hold no kernel of
+      their own and are plain torch ops; the chip time goes to 9b;
 10. file and device encoding (tok/parallel_encode.py, tok/device_encode.py;
     plain torch on the card, no kernel of this repository):
    a. the merge-rank scan on the card against the same function on the
@@ -152,12 +168,23 @@ package. Phases, none of whose failures is caught:
    e. the CLI (cli/train_bpe.py) on tests/data/large.txt at vocab 1024
       with --device cuda, then with --profile-dir: the saved files must
       equal BBPETrainer.save's for the same config, and the trace must
-      exist and not be empty.
+      exist and not be empty;
+12. GPT-2's 50,000-merge model on the card: the merges derived from
+    tests/fixtures_gpt2/gpt2_vocab.json (ids 256..50255 are the merge
+    ranks: each token, BPE-encoded with the merges before it, splits into
+    its rank's two parts); encode, encode_batch(device=True) and
+    encode_file (host threads, and the device scan) with
+    compute_device="cuda" must give the golden ids of the 11 snippets and
+    the two special-token texts (the golden no_special ids decoded), with
+    and without <|endoftext|>.
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}. K1's and
 K3's entries carry old_ms, the first design's time for the same call on
-the same inputs, and K3's calls beside its launches and memsets.
+the same inputs, and K3's calls beside its launches and memsets. K1's
+entry carries its wide leg too (phase 5w): wide_launches (the trainer's
+run), wide_steps, wide_ms, wide_plain_ms and wide_bound_ms (the first
+chunk at vocab 1024) and wide_max_abs_err (all three comparisons).
 """
 
 from __future__ import annotations
@@ -328,15 +355,18 @@ def k2_replay_vs_twin(table, base, vocab_cap, min_frequency, record, until, card
     return replay_ms, replay_plain_ms, tally["bytes"], replayed, err
 
 
-def wide_words_run(label, files, vocab_cap, route, card):
-    """Train ``files`` on the card with the merge kernels' launch counts
-    zeroed: the route must be the fallback engine ``route``, no kernel may
-    launch, and the merges and vocab must equal the native loop's."""
+def wide_words_run(label, files, vocab_cap, route, card, min_frequency=2, **extra):
+    """Train ``files`` on the card (config ``extra``) with the merge
+    kernels' launch counts zeroed: the route must be ``route``; on K1 only
+    K1 may launch and it must, on a fallback engine no kernel may launch;
+    the merges and vocab must equal the native loop's. Returns K1's
+    launches."""
     from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
     from yabpe_tpu_torch.kernels import fused_loop, hbm_loop, replay_emit
 
-    cfg = dict(vocab_size=vocab_cap, min_frequency=2, max_workers=8,
+    cfg = dict(vocab_size=vocab_cap, min_frequency=min_frequency, max_workers=8,
                chunk_size_bytes=32 << 20, special_tokens=SPECIALS)
+    cfg.update(extra)
     counts = ((hbm_loop.LAUNCHES, "hbm_merge_chunk"), (fused_loop.LAUNCHES, "fused_merge_chunk"),
               (replay_emit.LAUNCHES, "replay_emit_chunk"))
     for launches, name in counts:
@@ -353,9 +383,12 @@ def wide_words_run(label, files, vocab_cap, route, card):
           f"unique_pretokens={int(stats['unique_pretokens'])} kernel_launches={launched} "
           f"native_merge_s={native_trainer.last_stats['merge_seconds']} [{card}]")
     check(trainer.route == route, f"{label}: route {trainer.route}, expected {route}")
+    k1 = launched.pop("fused_merge_chunk")
     check(not any(launched.values()), f"{label}: a merge kernel launched: {launched}")
+    check((k1 > 0) == (route == "K1"), f"{label}: {k1} K1 launches on route {route}")
     check(model.merges == native_model.merges, f"{label}: merges differ from the native loop")
     check(model.vocab == native_model.vocab, f"{label}: vocab differs from the native loop")
+    return k1
 
 
 def v1_library(name: str, entry: str, n_ptrs: int, n_ints: int):
@@ -441,12 +474,15 @@ def k1_first_launch(table, base, vocab_cap, min_frequency, card):
     return split
 
 
-def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
-    """K1 and its twin chunk by chunk from one state, the whole state but
-    row_max exactly equal after every chunk and row_max at least each
-    row's max; then the first chunk through K1's first design from the same
-    state. Returns (kernel ms, twin ms, bytes needed, max abs difference,
-    first design's ms), of the first chunk."""
+def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card, *,
+                  layout=None, old=True):
+    """K1 (its token bytes in ``layout``, None for the kernel's choice) and
+    its twin chunk by chunk from one state, the whole state but row_max
+    exactly equal after every chunk and row_max at least each row's max;
+    then, with ``old``, the first chunk through K1's first design (words of
+    at most 64 symbols) from the same state. Returns (kernel ms, twin ms,
+    bytes needed, max abs difference, first design's ms or None, steps),
+    of the first chunk."""
     import torch
 
     from yabpe_tpu_torch.kernels import fused_loop
@@ -464,7 +500,7 @@ def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
         tally: dict[str, int] = {}
         plain_ms = timed_chunk(fused_loop.fused_merge_chunk_reference, twin, tally=tally, **kw)
         done = int(kern.scalars[2])
-        ms = timed_chunk(fused_loop.fused_merge_chunk, kern, **kw)
+        ms = timed_chunk(fused_loop.fused_merge_chunk, kern, _layout=layout, **kw)
         chunk_ms.append(ms)
         chunk_steps.append(int(kern.scalars[2]) - done)
         for name in ("words", "counts", "token_bytes", "token_len", "lex_rank", "merges"):
@@ -480,23 +516,140 @@ def fused_vs_twin(label, table, base, vocab_cap, min_frequency, chunk, card):
         if int(kern.scalars[1]):
             break
     ms, plain_ms, need, steps = first
-    # the first design on the first chunk, from the same state, warmed up once
-    kw = dict(chunk_start=0, chunk_size=chunk, num_merges=num, min_frequency=min_frequency)
-    v1_fused_chunk(start_state.clone(), **kw)
-    old = start_state.clone()
-    old_ms = timed_chunk(v1_fused_chunk, old, **kw)
-    check(torch.equal(old.merges[:steps], kern.merges[:steps]),
-          f"{label}: the first design's merges differ")
+    old_ms = None
+    if old:
+        # the first design on the first chunk, from the same state, warmed up once
+        kw = dict(chunk_start=0, chunk_size=chunk, num_merges=num, min_frequency=min_frequency)
+        v1_fused_chunk(start_state.clone(), **kw)
+        first_design = start_state.clone()
+        old_ms = timed_chunk(v1_fused_chunk, first_design, **kw)
+        check(torch.equal(first_design.merges[:steps], kern.merges[:steps]),
+              f"{label}: the first design's merges differ")
+    n, w = table.words.shape
+    byte_width = kern.token_bytes.shape[1]
+    used = layout or fused_loop.token_layout(vocab_cap, byte_width)
     us = [1e3 * t / max(k, 1) for t, k in zip(chunk_ms, chunk_steps)]
-    print(f"{label}: V={vocab_cap} N={table.words.shape[0]} W={table.words.shape[1]} "
+    print(f"{label}: V={vocab_cap} N={n} W={w} L={byte_width} token_layout={used} "
           f"chunk={chunk} first_chunk_steps={steps} kernel_chunk_ms={ms} twin_chunk_ms={plain_ms} "
           f"kernel_us_per_step={1e3 * ms / max(steps, 1)} needed_bytes={need} "
-          f"old_kernel_chunk_ms={old_ms} old_kernel_us_per_step={1e3 * old_ms / max(steps, 1)} "
-          f"merges={int(kern.scalars[2])} stopped={int(kern.scalars[1])} "
+          + (f"old_kernel_chunk_ms={old_ms} old_kernel_us_per_step={1e3 * old_ms / max(steps, 1)} "
+             if old else "")
+          + f"merges={int(kern.scalars[2])} stopped={int(kern.scalars[1])} "
           f"kernel_ms_by_chunk={chunk_ms} steps_by_chunk={chunk_steps} us_per_step_by_chunk={us} "
-          f"cluster_ctas={fused_loop.cluster_ctas(table.words.shape[0], vocab_cap, kern.token_bytes.shape[1])} "
+          f"cluster_ctas={fused_loop.cluster_ctas(n, vocab_cap, byte_width, width=w, _layout=used)} "
           f"max_abs_err={err} (tolerance: exact; row_max a bound) [{card}]")
-    return ms, plain_ms, need, err, old_ms
+    return ms, plain_ms, need, err, old_ms, steps
+
+
+def wide_text(path: Path, lines: int, seed: int) -> str:
+    """The text of ``path`` plus ``lines`` lines of 65-300-byte pre-tokens
+    (scripts/wide_lines.py)."""
+    from wide_lines import wide_lines
+
+    return path.read_text(encoding="utf-8") + "\n" + "\n".join(wide_lines(lines, seed)) + "\n"
+
+
+def wide_k1_run(base, tmp: Path, card):
+    """Phase 5w: K1 on words past 64 symbols. Returns (kernel ms, twin ms,
+    bytes needed, max abs difference, steps) of the first chunk at V =
+    1024, and K1's launches on the trainer's run."""
+    import torch
+
+    from yabpe_tpu_torch.core.wordtable import WordTable
+    from yabpe_tpu_torch.kernels import fused_loop
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens
+
+    path = tmp / "wide_large_seed0.txt"
+    path.write_text(wide_text(REPO / "tests" / "data" / "large.txt", 2000, 0), encoding="utf-8")
+    table = WordTable.from_counter(count_pretokens([path], SPECIALS))
+    check(table.words.shape == (1024, 304), f"the wide table is {table.words.shape}, not 1024 x 304")
+    check(fused_loop.token_layout(1024, 304) == "global", "the token bytes at V=1024 fit shared memory")
+    check(fused_loop.token_layout(320, 304) == "shared", "the token bytes at V=320 do not fit")
+    wide = fused_vs_twin("fused_vs_twin_wide_large_v1024", table, base, 1024, 2, 200, card, old=False)
+    small = {
+        layout: fused_vs_twin(f"fused_vs_twin_wide_large_v320_{layout}", table, base, 320, 2, 32,
+                              card, layout=layout, old=False)
+        for layout in fused_loop.TOKEN_LAYOUTS
+    }
+    for label, (ms, plain_ms, need, _, _, steps) in (("v1024_global", wide),
+                                                     *((f"v320_{k}", r) for k, r in small.items())):
+        print(f"K1 wide words {label}: kernel_ms_first_chunk={ms} kernel_us_per_step={1e3 * ms / steps} "
+              f"twin_ms={plain_ms} bound_ms={need / HBM_BYTES_PER_S * 1e3} by bytes [{card}]")
+    del table
+    torch.cuda.empty_cache()
+    # the trainer on TinyStories plus wide lines at V = 1000, through K1
+    story = tmp / "wide_tinystories_seed0.txt"
+    story.write_text(wide_text(TINYSTORIES, 2000, 0), encoding="utf-8")
+    t0 = time.perf_counter()
+    launches = wide_words_run("wide_words_tinystories_v1000", [story], 1000, "K1", card,
+                              min_frequency=1, max_workers=1, chunk_size_bytes=1 << 30)
+    print(f"phase 5w trainer: {time.perf_counter() - t0} s [{card}]")
+    ms, plain_ms, need, err, _, steps = wide
+    return ms, plain_ms, need, max(err, *(r[3] for r in small.values())), steps, launches
+
+
+def derive_gpt2_merges(vocab: dict[bytes, int]) -> list[tuple[bytes, bytes]]:
+    """GPT-2's merges in rank order from its vocabulary: each token of id
+    256..50255, BPE-encoded with the merges derived so far, splits into
+    exactly two parts, which are that rank's merge."""
+    ranks: dict[tuple[bytes, bytes], int] = {}
+    merges: list[tuple[bytes, bytes]] = []
+    for token, _ in sorted(vocab.items(), key=lambda kv: kv[1])[256:]:
+        if token == SPECIALS[0].encode():
+            continue
+        parts = [bytes([b]) for b in token]
+        while len(parts) > 2:
+            k = min(range(len(parts) - 1),
+                    key=lambda i: ranks.get((parts[i], parts[i + 1]), len(ranks)))
+            check((parts[k], parts[k + 1]) in ranks, f"gpt2: {token!r} has no known pair")
+            parts[k:k + 2] = [parts[k] + parts[k + 1]]
+        check(len(parts) == 2, f"gpt2: {token!r} does not split into two")
+        ranks[(parts[0], parts[1])] = len(merges)
+        merges.append((parts[0], parts[1]))
+    return merges
+
+
+def gpt2_run(tmp: Path, card) -> None:
+    """Phase 12: GPT-2's 50,000-merge model on the card: encode,
+    encode_batch(device=True) and encode_file (host threads and device
+    scan) on the golden snippets and special-token texts, with and
+    without <|endoftext|>, against the golden ids."""
+    from yabpe_tpu_torch import BBPETokenizer
+    from yabpe_tpu_torch.io import gpt2
+
+    fixtures = REPO / "tests" / "fixtures_gpt2"
+    t0 = time.perf_counter()
+    vocab = gpt2.load_gpt2_vocab(fixtures / "gpt2_vocab.json")
+    merges = derive_gpt2_merges(vocab)
+    derive_s = time.perf_counter() - t0
+    check(len(vocab) == 50257 and len(merges) == 50000, "gpt2: not 50,000 merges")
+    golden = json.loads((fixtures / "golden_encode" / "gpt2_golden.json").read_text(encoding="utf-8"))
+    snippets = golden["snippets"]
+    cases = list(zip(snippets["texts"], snippets["with_special"], snippets["no_special"]))
+    plain = BBPETokenizer(vocab, merges, [], compute_device="cuda")
+    for key in ("special_trailing", "special_double"):
+        entry = golden[key]
+        cases.append((plain.decode(entry["no_special"]), entry["with_special"], entry["no_special"]))
+    texts = [text for text, _, _ in cases]
+    for i, text in enumerate(texts):
+        (tmp / f"gpt2_{i}.txt").write_bytes(text.encode("utf-8"))
+    for mode, specials in (("with_special", SPECIALS), ("no_special", [])):
+        want = [w if mode == "with_special" else n for _, w, n in cases]
+        tok = BBPETokenizer(vocab, merges, specials, compute_device="cuda")
+        t1 = time.perf_counter()
+        check([tok.encode(t) for t in texts] == want, f"gpt2 {mode}: encode differs from the golden ids")
+        check(tok.encode_batch(texts, device=True) == want,
+              f"gpt2 {mode}: encode_batch(device=True) differs from the golden ids")
+        for device in (False, True):
+            got = [tok.encode_file(tmp / f"gpt2_{i}.txt", device=device).tolist() for i in range(len(texts))]
+            check(got == want, f"gpt2 {mode}: encode_file(device={device}) differs from the golden ids")
+        enc = tok._get_device_encoder(None)
+        check(enc is not None and enc.stats["tiles"] > 0 and enc._sorted_keys.device.type == "cuda",
+              f"gpt2 {mode}: the device encoder did not run on the card")
+        print(f"gpt2_golden_{mode}: {len(texts)} texts exact through encode, encode_batch(device=True), "
+              f"encode_file host and device; tiles={enc.stats['tiles']} "
+              f"{time.perf_counter() - t1} s [{card}]")
+    print(f"gpt2: 50,000 merges derived from gpt2_vocab.json in {derive_s} s (host)")
 
 
 def v1_replay(words, freqs, chain, *, cps, cps0):
@@ -1047,7 +1200,6 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "scripts"))
 
     from gen_corpus import generate
-    from wide_lines import wide_lines
 
     from yabpe_tpu_torch import BBPETokenizer, BBPETrainer, BBPETrainerConfig, native
     from yabpe_tpu_torch.core.vocab import Vocab
@@ -1165,11 +1317,21 @@ def main() -> int:
     tiny = WordTable.from_counter(count_pretokens([TINYSTORIES], SPECIALS, max_workers=1))
     print(f"tinystories word table: {tiny.num_words} words, width {tiny.width}, "
           f"{time.perf_counter() - t0:.3f} s (host)")
-    k1_ms, k1_plain_ms, k1_need, k1_err, k1_old_ms = fused_vs_twin(
+    k1_ms, k1_plain_ms, k1_need, k1_err, k1_old_ms, k1_steps = fused_vs_twin(
         "fused_vs_twin_tinystories_v1000", tiny, base, 1000, 1, 256, card
     )
+    print(f"K1 narrow words, TinyStories at V=1000, first chunk: {1e3 * k1_ms / k1_steps} us per step "
+          f"(before wide words: 8.3-9.1 us on NVIDIA H100 80GB HBM3, 700.00 W, PERF.md §6) [{card}]")
     del large, tiny
     torch.cuda.empty_cache()
+
+    # ---- 5w. K1 on words past 64 symbols, both token-byte layouts
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_k1_wide_") as tmp:
+        (wide_ms, wide_plain_ms, wide_need, wide_err, wide_steps,
+         wide_launches) = wide_k1_run(base, Path(tmp), card)
+    wide_bound_ms = wide_need / HBM_BYTES_PER_S * 1e3
+    print(f"phase 5w: {time.perf_counter() - t0} s [{card}]")
 
     with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_k1_") as tmp:
         tmp = Path(tmp)
@@ -1321,16 +1483,21 @@ def main() -> int:
     check(resumed.merges == big_native.merges, "resumed merges differ from the native loop")
     check(resumed.vocab == big_native.vocab, "resumed vocab differs from the native loop")
 
-    # ---- 9c. words past 64 symbols, on the fallback engines on the card
+    # ---- 9c. words past 64 symbols on the card: K1 where it admits them,
+    # else the fallback engines
     with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_wide_") as tmp:
         tmp = Path(tmp)
-        for name, lines, seed in (("wide_5M.txt", fixture, 0), ("wide_large.txt", REPO / "tests" / "data" / "large.txt", 1)):
-            (tmp / name).write_text(
-                lines.read_text(encoding="utf-8") + "\n" + "\n".join(wide_lines(2000, seed)) + "\n",
-                encoding="utf-8",
-            )
+        large_txt = REPO / "tests" / "data" / "large.txt"
+        for name, lines, seed in (("wide_5M.txt", fixture, 0), ("wide_large.txt", large_txt, 0),
+                                  ("wide_large_seed1.txt", large_txt, 1)):
+            (tmp / name).write_text(wide_text(lines, 2000, seed), encoding="utf-8")
         wide_words_run("wide_words_5M_v4096", [tmp / "wide_5M.txt"], 4096, "bigvocab", card)
-        wide_words_run("wide_words_large_v1024", [tmp / "wide_large.txt"], 1024, "incremental", card)
+        wide_words_run("wide_words_large_v1024", [tmp / "wide_large.txt"], 1024, "K1", card)
+        wide_words_run("wide_words_large_v1024_no_k1", [tmp / "wide_large.txt"], 1024, "incremental",
+                       card, use_fused_kernel=False)
+        # seed 1: 1,027 words, 2,048 rows, past K1's admission at V=1024
+        wide_words_run("wide_words_large_2048rows_v1024", [tmp / "wide_large_seed1.txt"], 1024,
+                       "incremental", card)
 
     # ---- 10. file and device encoding
     t0 = time.perf_counter()
@@ -1342,6 +1509,12 @@ def main() -> int:
     distributed_run(corpus, big_native, card)
     print(f"phase 11: {time.perf_counter() - t0:.3f} s [{card}]")
     corpus_dir.cleanup()
+
+    # ---- 12. GPT-2's 50,000-merge model on the card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_gpt2_") as tmp:
+        gpt2_run(Path(tmp), card)
+    print(f"phase 12: {time.perf_counter() - t0:.3f} s [{card}]")
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {
         "kernels": [
@@ -1377,6 +1550,12 @@ def main() -> int:
                 "bound_ms": k1_bound_ms,
                 "bound_by": "bytes",
                 "library_ms": None,
+                "wide_launches": wide_launches,
+                "wide_steps": wide_steps,
+                "wide_ms": wide_ms,
+                "wide_plain_ms": wide_plain_ms,
+                "wide_bound_ms": wide_bound_ms,
+                "wide_max_abs_err": wide_err,
             },
             {
                 "name": "replay_emit_chunk",

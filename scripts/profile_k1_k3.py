@@ -2,7 +2,7 @@
 """Time K1 (csrc/fused_loop.cu) and K3 (csrc/replay_emit.cu) against their
 first designs (csrc/*_v1.cu) on one GPU, with K1's phase timer.
 
-    python3 scripts/profile_k1_k3.py [--reps 2]
+    python3 scripts/profile_k1_k3.py [--reps 2] [--only k1|k1wide|k3]
 
 K1, from one initial state each, every chunk timed by CUDA events, the
 merges of every variant equal to the committed launch's:
@@ -16,7 +16,15 @@ merges of every variant equal to the committed launch's:
     committed CTAs have 512 threads, 16 stripes), and the first design,
     on the TinyStories run and on the top of K1's admission:
     scripts/gen_corpus.py at 1 MB with a 12,000-word lexicon (26,624 rows
-    of width 16) at vocab 500, min_frequency 2.
+    of width 16) at vocab 500, min_frequency 2;
+  - words past 64 symbols: tests/data/large.txt plus 2,000 lines of
+    scripts/wide_lines.py (seed 0; 1,024 rows of width 304) at vocab 1024
+    (the token bytes in device memory; chunks of 200) and at vocab 320
+    (in shared memory; chunks of 32), min_frequency 2: us per step by
+    chunk and the phase split, and against the wide apply's earlier forms
+    (the first design takes at most 64 symbols): the whole changed window,
+    as first built, and the changed pairs alone read one symbol a load.
+    ``--only k1wide`` runs these alone.
 K3, on the 4 shards of chip_smoke.py's 100 MB table (scripts/gen_corpus.py,
 lexicon 200,000, seed 7) with K2's first 16 merges as the chain, cps 64:
 each shard's device time per call (5 calls queued behind a spin kernel)
@@ -66,6 +74,93 @@ K3_PER_WARP = """      const yabpe::RegsMerge m = yabpe::plan_regs<WB>(w, a, s_c
                           run + incl - need};"""
 
 
+#: K1's wide apply as first built: it hands the table the whole changed
+#: window, the cells of merge_word in its order, one load a symbol, after
+#: word_has_pair (a variant; --only k1wide).
+WIDE_WHOLE_WINDOW = """template <class Sink>
+__device__ __forceinline__ void merge_word_window(int* w, int W, int f, int a,
+                                                  int b, int c, Sink& sink) {
+  int n = 0, first = -1, last = -1, takes = 0;
+  bool prev = false;
+  for (; n < W && w[n] >= 0; ++n) {
+    const bool t = !prev && n + 1 < W && w[n] == a && w[n + 1] == b;
+    if (t) {
+      if (first < 0) first = n;
+      last = n;
+      ++takes;
+    }
+    prev = t;
+  }
+  if (takes == 0) return;
+  const int m = n - takes;
+  const int lo = max(first - 1, 0);
+  const int old_hi = min(last + 1, n - 2);
+  const int new_hi = min(last - (takes - 1), m - 2);
+  for (int k = lo; k <= old_hi; ++k) sink.sub(w[k], w[k + 1], f);
+  sink.fence();
+  int q = first;
+  for (int k = first; k < n;) {
+    if (k + 1 < n && w[k] == a && w[k + 1] == b) {
+      w[q++] = c;
+      k += 2;
+    } else {
+      w[q++] = w[k++];
+    }
+  }
+  for (int k = m; k < n; ++k) w[k] = -1;
+  for (int k = lo; k <= new_hi; ++k) sink.add(w[k], w[k + 1], f);
+}
+
+"""
+#: The committed apply's cells (only the changed pairs), one load a
+#: symbol, after word_has_pair (a variant; --only k1wide).
+WIDE_CHANGED_UNBATCHED = """template <class Sink>
+__device__ __forceinline__ void merge_word_changed(int* w, int W, int f, int a,
+                                                   int b, int c, Sink& sink) {
+  int n = 0, first = -1;
+  bool t2 = false, t1 = false;
+  int prev = -1, cur = W > 0 ? w[0] : -1;
+  for (; n < W && cur >= 0; ++n) {
+    const int next = n + 1 < W ? w[n + 1] : -1;
+    const bool t0 = !t1 && cur == a && next == b;
+    if (t0 && first < 0) first = n;
+    if (n > 0 && (t2 || t1 || t0)) sink.sub(prev, cur, f);
+    t2 = t1;
+    t1 = t0;
+    prev = cur;
+    cur = next;
+  }
+  if (first < 0) return;
+  sink.fence();
+  int q = first;
+  int left = first > 0 ? w[first - 1] : -1;
+  bool left_merged = false;
+  for (int k = first; k < n;) {
+    const bool take = k + 1 < n && w[k] == a && w[k + 1] == b;
+    const int sym = take ? c : w[k];
+    k += take ? 2 : 1;
+    if (left >= 0 && (take || left_merged)) sink.add(left, sym, f);
+    w[q++] = sym;
+    left = sym;
+    left_merged = take;
+  }
+  for (int k = q; k < n; ++k) w[k] = -1;
+}
+
+"""
+REGS_ANCHOR = "// A merge of (a, b) in a word held in registers"
+WIDE_CALL = """      if constexpr (kWide)
+        yabpe::merge_word_wide(w, W, freqs[i], a, b, c, sink);
+      else if (yabpe::word_has_pair(w, W, a, b))
+        yabpe::merge_word(w, W, freqs[i], a, b, c, sink);"""
+WIDE_CALL_GUARDED = """      if (yabpe::word_has_pair(w, W, a, b)) {
+        if constexpr (kWide)
+          yabpe::{fn}(w, W, freqs[i], a, b, c, sink);
+        else
+          yabpe::merge_word(w, W, freqs[i], a, b, c, sink);
+      }"""
+
+
 def build_variant(name: str, source: str, edits: list[tuple[str, str, str]]):
     """Build csrc/<source>.cu with ``edits`` (file, old, new), each of
     which must hit the committed text, into _build/variants/; returns the
@@ -98,6 +193,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=2)
+    parser.add_argument("--only", choices=["k1", "k1wide", "k3"], default=None,
+                        help="profile one kernel, or K1's wide tables alone (default: both)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_k1_k3: no CUDA device", file=sys.stderr)
@@ -107,6 +204,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from chip_smoke import per_call_ms, v1_fused_chunk, v1_replay
     from gen_corpus import generate
+    from wide_lines import wide_lines
 
     from yabpe_tpu_torch.core.vocab import Vocab
     from yabpe_tpu_torch.core.wordtable import WordTable
@@ -126,7 +224,7 @@ def main() -> int:
     fused_loop._prepare(torch.cuda.current_device())
 
     k1_threads = {}
-    for threads in (256, 1024):
+    for threads in (256, 1024) if args.only in (None, "k1") else ():
         name = f"fused_loop_threads_{threads}"
         k1 = build_variant(name, "fused_loop", [
             ("fused_loop.cu", "constexpr int kThreads = 512;", f"constexpr int kThreads = {threads};"),
@@ -136,12 +234,28 @@ def main() -> int:
         if k1.yabpe_fused_prepare() != 0:
             raise SystemExit(f"profile_k1_k3: {name} set-up failed")
         k1_threads[threads] = k1
-    k3_word = build_variant("replay_emit_per_word", "replay_emit", [
-        ("replay_emit.cu", K3_PER_WARP, K3_PER_WORD),
-        ("merge_apply.cuh", "    if (slot + n > cap) *ok = 0;",
-         "    if (slot + n > cap && ok != nullptr) *ok = 0;"),
-    ])
-    k3_word.yabpe_replay_emit_chunk.argtypes = replay_emit._library().yabpe_replay_emit_chunk.argtypes
+    k1_wide = {}  # the wide apply's earlier forms
+    forms = (("whole_window", "merge_word_window", WIDE_WHOLE_WINDOW),
+             ("changed_unbatched", "merge_word_changed", WIDE_CHANGED_UNBATCHED))
+    for name, fn, text in forms if args.only in (None, "k1", "k1wide") else ():
+        k1 = build_variant(f"fused_loop_{name}", "fused_loop", [
+            ("merge_apply.cuh", REGS_ANCHOR, text + REGS_ANCHOR),
+            ("fused_loop.cu", WIDE_CALL, WIDE_CALL_GUARDED.replace("{fn}", fn)),
+        ])
+        k1.yabpe_fused_merge_chunk.argtypes = lib.yabpe_fused_merge_chunk.argtypes
+        k1.yabpe_fused_cluster_ctas.argtypes = lib.yabpe_fused_cluster_ctas.argtypes
+        if k1.yabpe_fused_prepare() != 0:
+            raise SystemExit(f"profile_k1_k3: fused_loop_{name} set-up failed")
+        k1_wide[name] = k1
+    if args.only in (None, "k3"):
+        k3_word = build_variant("replay_emit_per_word", "replay_emit", [
+            ("replay_emit.cu", K3_PER_WARP, K3_PER_WORD),
+            ("merge_apply.cuh", "    if (slot + n > cap) *ok = 0;",
+             "    if (slot + n > cap && ok != nullptr) *ok = 0;"),
+        ])
+        k3_word.yabpe_replay_emit_chunk.argtypes = (
+            replay_emit._library().yabpe_replay_emit_chunk.argtypes
+        )
 
     def forced(ctas, lib=lib):
         """fused_merge_chunk with the cluster size forced to ``ctas``."""
@@ -149,10 +263,11 @@ def main() -> int:
         def run(state, *, chunk_start, chunk_size, num_merges, min_frequency):
             n, w = state.words.shape
             v, byte_width = state.token_bytes.shape
+            layout = fused_loop.TOKEN_LAYOUTS.index(fused_loop.token_layout(v, byte_width))
             rc = lib.yabpe_fused_merge_chunk(
                 *(t.data_ptr() for t in state.tensors()), None, n, w, v, byte_width,
                 chunk_start, min(chunk_start + chunk_size, num_merges), min_frequency, ctas,
-                torch.cuda.current_stream().cuda_stream,
+                layout, torch.cuda.current_stream().cuda_stream,
             )
             if rc != 0:
                 raise RuntimeError(f"fused_merge_chunk with {ctas} CTAs: CUDA error {rc}")
@@ -195,11 +310,22 @@ def main() -> int:
             "top_of_admission_v500": (WordTable.from_counter(count_pretokens(
                 [top], SPECIALS, max_workers=8)), 500, 2, 256),
         }
+        wide = Path(tmp) / "wide.txt"
+        wide.write_text((REPO / "tests" / "data" / "large.txt").read_text(encoding="utf-8") + "\n"
+                        + "\n".join(wide_lines(2000, 0)) + "\n", encoding="utf-8")
+        wide_table = WordTable.from_counter(count_pretokens([wide], SPECIALS))
+        tables["wide_large_v1024"] = (wide_table, 1024, 2, 200)
+        tables["wide_large_v320"] = (wide_table, 320, 2, 32)
+        if args.only == "k3":
+            tables = {}
+        elif args.only == "k1wide":
+            tables = {k: v for k, v in tables.items() if k.startswith("wide")}
 
     # ---- K1: the committed launch, its phases, and the variants
     for label, (table, vocab_cap, min_freq, chunk) in tables.items():
         n, w = table.words.shape
-        auto = fused_loop.cluster_ctas(n, vocab_cap, hbm_driver.byte_width(table.width, base))
+        auto = fused_loop.cluster_ctas(n, vocab_cap, hbm_driver.byte_width(table.width, base),
+                                       width=w)
         phases = torch.zeros(len(fused_loop.PHASES), dtype=torch.int64, device="cuda")
         total, ms, steps, want = run_all(fused_loop.fused_merge_chunk, table, vocab_cap,
                                          min_freq, chunk, phases)
@@ -211,20 +337,32 @@ def main() -> int:
               f"phase_us_per_step={per} [{card}]", flush=True)
         if label == "large_v1024":
             continue
-        variants = {"committed": fused_loop.fused_merge_chunk, "first_design": v1_fused_chunk}
-        for threads, k1 in k1_threads.items():
+        byte_width = hbm_driver.byte_width(table.width, base)
+        layout = fused_loop.TOKEN_LAYOUTS.index(fused_loop.token_layout(vocab_cap, byte_width))
+        if label.startswith("wide"):
+            variants = {"committed": fused_loop.fused_merge_chunk}
+            variants.update({name: forced(k1.yabpe_fused_cluster_ctas(
+                n, w, vocab_cap, byte_width, layout), k1) for name, k1 in k1_wide.items()})
+        else:
+            variants = {"committed": fused_loop.fused_merge_chunk, "first_design": v1_fused_chunk}
+        for threads, k1 in k1_threads.items() if not label.startswith("wide") else ():
             variants[f"threads_{threads}"] = forced(k1.yabpe_fused_cluster_ctas(
-                n, vocab_cap, hbm_driver.byte_width(table.width, base)), k1)
-        variants.update({f"ctas_{c}": forced(c) for c in (1, 2, 4, 8, 16) if c != auto})
+                n, w, vocab_cap, byte_width, layout), k1)
+        if not label.startswith("wide"):
+            variants.update({f"ctas_{c}": forced(c) for c in (1, 2, 4, 8, 16) if c != auto})
         for rep in range(args.reps):
             for name, fn in variants.items():
                 total, ms, steps, merges = run_all(fn, table, vocab_cap, min_freq, chunk)
                 if not torch.equal(merges, want):
                     raise SystemExit(f"profile_k1_k3: {label} {name} merges differ")
                 print(f"K1 {label} rep {rep} {name}: all_chunks_ms={total} "
-                      f"us_per_step={1e3 * total / max(sum(steps), 1)} [{card}]", flush=True)
+                      f"us_per_step={1e3 * total / max(sum(steps), 1)} "
+                      f"us_per_step_by_chunk={[1e3 * t / max(k, 1) for t, k in zip(ms, steps)]} "
+                      f"[{card}]", flush=True)
 
     # ---- K3 on the 4 shards of the 100 MB table
+    if args.only in ("k1", "k1wide"):
+        return 0
     with tempfile.TemporaryDirectory(prefix="yabpe_k1k3_") as tmp:
         corpus = Path(tmp) / "corpus_100M.txt"
         generate(str(corpus), 100.0, lexicon_size=200_000)

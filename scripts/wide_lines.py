@@ -14,9 +14,11 @@ than 13 bytes. Each line is one of three kinds, in turn:
 - a long word without digits, made of English-like syllables.
 
 Lines are drawn from a pool of a third as many distinct tokens, so most
-tokens occur several times and survive ``min_frequency=2``. The merge
-kernels take words of at most 64 symbols, so a corpus with these lines
-trains on the fallback engines (train/bigvocab.py, train/incremental.py).
+tokens occur several times and survive ``min_frequency=2``. K2 and K3
+take words of at most 64 symbols and K1 takes any width, as the TPU
+kernels do, so a corpus with these lines trains on K1 where its
+admission takes the problem (about vocab 1000 or less) and on the
+fallback engines (train/bigvocab.py, train/incremental.py) past it.
 """
 
 from __future__ import annotations

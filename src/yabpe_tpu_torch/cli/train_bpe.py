@@ -7,14 +7,15 @@ the JAX CLI's, with these changes:
 
 - ``--backend`` takes ``torch`` (the default) or ``numpy`` (the host
   oracle);
-- ``--device`` (default ``cuda``) says where the device merge loop runs;
-- ``--ingest-processes`` is dropped: the port's config has no process-pool
-  ingest (the native scanner runs on threads);
-- ``--count-strategy`` is dropped: every strategy counts pairs with the
-  same scatter here (kernels/pair_count.py), so it would change nothing.
+- ``--device`` (default ``cuda``) says where the device merge loop runs.
 
-The JAX package's ``yabpe-bench`` (cli/bench.py) runs the JAX harness
-``bench.py``; its counterpart waits for the port's own bench script.
+``--ingest-processes`` and ``--count-strategy`` go to the config as in
+the JAX CLI: the first acts on the ``regex`` ingest path only (the native
+scanner runs on threads), the second on the fallback engines' counts.
+:func:`main_tiny_stories` is the console script
+``yabpe-torch-train-tiny-stories``. The JAX package's ``yabpe-bench``
+(cli/bench.py) runs the JAX harness ``bench.py``; its counterpart waits
+for the port's own bench script.
 """
 
 from __future__ import annotations
@@ -44,12 +45,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-workers", type=int, default=8)
     p.add_argument("--chunk-size", type=int, default=20 * 1024 * 1024)
     p.add_argument("--backend", choices=["torch", "numpy"], default="torch")
+    p.add_argument("--count-strategy", choices=["dense", "matmul", "auto"], default="dense")
     p.add_argument(
         "--device", default="cuda",
         help="where the device merge loop runs: cuda (default) or cpu",
     )
     p.add_argument("--data-shards", type=int, default=None)
     p.add_argument("--vocab-shards", type=int, default=1)
+    p.add_argument("--ingest-processes", action="store_true")
     p.add_argument(
         "--profile-dir", default=None,
         help="write a torch.profiler Chrome trace (trace.json) here",
@@ -93,8 +96,10 @@ def main(argv: list[str] | None = None) -> int:
         chunk_size_bytes=args.chunk_size,
         special_tokens=specials,
         backend=args.backend,
+        count_strategy=args.count_strategy,
         data_shards=args.data_shards,
         vocab_shards=args.vocab_shards,
+        ingest_processes=args.ingest_processes,
         align_chunks_to_newline=True,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every_chunks=args.checkpoint_every_chunks,

@@ -22,10 +22,11 @@
 //
 // What bounds it on this card. The problems this kernel takes are small
 // (the driver admits them by the JAX package's 48 MB plan, V about 1000 or
-// less, up to ~10,000 rows at width 16): the table is a few MB and sits
-// in the 50 MB L2. A step's useful work is a few count rows and a few
-// hundred words, so a step is bound by latency: the chain of dependent
-// reads, reductions and barriers, not bytes.
+// less, up to ~10,000 rows at width 16, or ~1,000 rows of 304 symbols):
+// the table is a few MB and sits in the 50 MB L2. A step's useful work is
+// a few count rows and a few hundred words, so a step is bound by
+// latency: the chain of dependent reads, reductions and barriers, not
+// bytes.
 //
 // What the design does about it. One thread-block cluster of 1 to 16
 // CTAs of 512 threads runs the whole chunk, persistently: as many CTAs as
@@ -68,7 +69,8 @@
 //
 // Dedup and insertion (CTA 0). Its shared memory keeps lex_rank, the
 // inverse array rank -> id, the token lengths and the token bytes (u16,
-// byte + 1, 0 for the padding) for the whole chunk. One warp finds the
+// byte + 1, 0 for the padding; in the global layout below, the bytes stay
+// in device memory) for the whole chunk. One warp finds the
 // merged bytes' insertion rank (the number of live tokens below them) by a
 // binary search over ranks, about log2(V) token compares, each a
 // warp-wide compare of two rows in shared memory; the token at that rank
@@ -82,6 +84,25 @@
 // with ld.global.cg (L2, never a stale L1 line). The barriers order
 // everything else: barrier.cluster.arrive has release and
 // barrier.cluster.wait acquire semantics.
+//
+// Words of any width, as the TPU kernel takes them. The kernel is built
+// four times (template <kTokGlobal, kWide>); the wrapper picks one per
+// launch shape:
+//   - kWide (W > kMaxWidth): the apply is merge_apply.cuh's
+//     merge_word_wide, in place in device memory, with no per-thread
+//     array: it reads the word kWalk symbols at a time, finds the pair
+//     itself (no word_has_pair first) and hands the table only the
+//     pairs that change; otherwise merge_word, as in hbm_loop.cu, so
+//     that the narrow kernel runs the code it ran before the wide case
+//     existed;
+//   - kTokGlobal: where CTA 0's u16 token bytes, (V + 1) * L * 2 bytes,
+//     pass the card's opt-in shared memory (609 KB at V = 1000 and L =
+//     304, against 227 KB), CTA 0 reads the int32 token_bytes in device
+//     memory instead (1.2 MB there, which stays in L2), with
+//     ld.global.cg, for the merged bytes and the rank search's compares;
+//     only the merged bytes [L] stay in shared memory. The choice is
+//     yabpe_fused_token_layout's, once per (V, L); a caller may force the
+//     global layout where the shared one fits.
 //
 // An optional phase timer (`phases`, enum Phase) adds thread 0 of CTA 0's
 // nanoseconds by %globaltimer per phase; the wrapper passes null unless a
@@ -148,14 +169,17 @@ static_assert(kStripes <= 32, "a lane reads each stripe's keys");
 
 // Dynamic shared memory, CTA 0's: the bound keys [V] (u64), lex ranks
 // [V]; then, for a chunk, rank -> id [V], token lengths [V], the token
-// bytes [V, L] and the merged bytes [L] as u16 (byte + 1, 0 for the -1
-// padding, so that the order of the u16 strings is the order of the -1
-// padded rows). L is even.
-size_t smem_bytes(int V, int L, bool select_only) {
+// bytes [V, L] (the shared layout only) and the merged bytes [L] as u16
+// (byte + 1, 0 for the -1 padding, so that the order of the u16 strings
+// is the order of the -1 padded rows). L is even.
+enum Layout : int { kSelectOnly = 0, kTokShared, kTokGlobal };
+
+size_t smem_bytes(int V, int L, Layout layout) {
   const size_t v = static_cast<size_t>(V);
-  if (select_only) return sizeof(u64) * v + sizeof(int) * v;
+  if (layout == kSelectOnly) return sizeof(u64) * v + sizeof(int) * v;
+  const size_t rows = layout == kTokShared ? v + 1 : 1;
   return sizeof(u64) * v + 3 * sizeof(int) * v +
-         sizeof(unsigned short) * (v + 1) * static_cast<size_t>(L);
+         sizeof(unsigned short) * rows * static_cast<size_t>(L);
 }
 
 // The exact key of count row `row` over the live columns [0, n): pack(max
@@ -222,6 +246,26 @@ __device__ int warp_compare(const unsigned short* row,
     const int d = d0 + lane;
     const unsigned x = d < L / 2 ? __funnelshift_l(x32[d], x32[d], 16) : 0u;
     const unsigned y = d < L / 2 ? __funnelshift_l(y32[d], y32[d], 16) : 0u;
+    const unsigned diff = __ballot_sync(kFullMask, x != y);
+    if (diff != 0) {
+      const int src = __ffs(diff) - 1;
+      return __shfl_sync(kFullMask, x < y ? -1 : 1, src);
+    }
+  }
+  return 0;
+}
+
+// warp_compare for a token row in device memory (the global layout):
+// int32 bytes, -1 padded, read through L2 (the row may have been written
+// this launch), one symbol a lane per pass, as byte + 1 against the u16
+// merged bytes.
+__device__ int warp_compare_global(const int* row, const unsigned short* merged,
+                                   int L) {
+  const int lane = threadIdx.x & 31;
+  for (int d0 = 0; d0 < L; d0 += 32) {
+    const int d = d0 + lane;
+    const unsigned x = d < L ? static_cast<unsigned>(__ldcg(row + d) + 1) : 0u;
+    const unsigned y = d < L ? merged[d] : 0u;
     const unsigned diff = __ballot_sync(kFullMask, x != y);
     if (diff != 0) {
       const int src = __ffs(diff) - 1;
@@ -331,6 +375,9 @@ __device__ u64 select_pair(const int* counts, int* row_max, u64* keys,
 // One chunk (or, with `out` set, one select alone: CTA 0 of a one-CTA
 // cluster runs the select over [0, select_n) and writes kNumOut ints to
 // `out`, (a, b, count, rounds) with a = b = -1 and count 0 for a stop).
+// kTokGlobal: the token bytes stay in device memory; kWide: the apply
+// takes words past kMaxWidth symbols (the note at the top).
+template <bool kTokGlobal, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_kernel(int* words, const int* __restrict__ freqs, int* counts,
                  int* row_max, int* token_bytes, int* token_len,
@@ -344,7 +391,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   int* rank_id = lex + V;                       // [V]
   int* len = rank_id + V;                       // [V]
   unsigned short* tok = reinterpret_cast<unsigned short*>(len + V);  // [V, L]
-  unsigned short* merged = tok + static_cast<size_t>(V) * L;         // [L]
+  // [L], after the token bytes in the shared layout
+  unsigned short* merged = kTokGlobal ? tok : tok + static_cast<size_t>(V) * L;
+  // token id's byte d as u16 (byte + 1, 0 for the padding), either layout
+  auto tok_at = [&](int id, int d) -> unsigned short {
+    const size_t x = static_cast<size_t>(id) * L + d;
+    return kTokGlobal ? static_cast<unsigned short>(__ldcg(token_bytes + x) + 1) : tok[x];
+  };
   __shared__ SelectScratch scratch;
   __shared__ int pub[4];     // this step's a, b, c and stop, read by every CTA
   __shared__ int search[2];  // insertion rank, equal id
@@ -373,8 +426,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int t = tid; t < V; t += kThreads) lex[t] = lex_rank[t];
     if (out == nullptr) {
       for (int t = tid; t < V; t += kThreads) len[t] = token_len[t];
-      for (size_t x = tid; x < static_cast<size_t>(V) * L; x += kThreads)
-        tok[x] = static_cast<unsigned short>(token_bytes[x] + 1);
+      if constexpr (!kTokGlobal)
+        for (size_t x = tid; x < static_cast<size_t>(V) * L; x += kThreads)
+          tok[x] = static_cast<unsigned short>(token_bytes[x] + 1);
     }
     __syncthreads();
     if (out == nullptr)
@@ -409,8 +463,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         // The merged bytes, then the binary search over the lex ranks.
         const int la = len[a], lb = len[b];
         for (int d = tid; d < L; d += kThreads)
-          merged[d] = d < la        ? tok[static_cast<size_t>(a) * L + d]
-                      : d < la + lb ? tok[static_cast<size_t>(b) * L + d - la]
+          merged[d] = d < la        ? tok_at(a, d)
+                      : d < la + lb ? tok_at(b, d - la)
                                     : static_cast<unsigned short>(0);
         __syncthreads();
         if (warp == 0) {
@@ -418,7 +472,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           while (lo < hi) {
             const int mid = (lo + hi) >> 1;
             const int id = rank_id[mid];
-            const int cmp = warp_compare(tok + static_cast<size_t>(id) * L, merged, L);
+            const int cmp =
+                kTokGlobal ? warp_compare_global(token_bytes + static_cast<size_t>(id) * L, merged, L)
+                           : warp_compare(tok + static_cast<size_t>(id) * L, merged, L);
             if (cmp == 0) eq = id;  // token strings are unique
             if (cmp < 0)
               lo = mid + 1;
@@ -444,7 +500,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               token_len[next_id] = la + lb;
             }
             for (int d = tid; d < L; d += kThreads) {
-              tok[static_cast<size_t>(next_id) * L + d] = merged[d];
+              if constexpr (!kTokGlobal) tok[static_cast<size_t>(next_id) * L + d] = merged[d];
               token_bytes[static_cast<size_t>(next_id) * L + d] =
                   static_cast<int>(merged[d]) - 1;
             }
@@ -476,7 +532,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     yabpe::TableSink sink{counts, V, row_max};
     for (int i = gtid; i < N; i += gsize) {
       int* w = words + static_cast<size_t>(i) * W;
-      if (yabpe::word_has_pair(w, W, a, b))
+      if constexpr (kWide)
+        yabpe::merge_word_wide(w, W, freqs[i], a, b, c, sink);
+      else if (yabpe::word_has_pair(w, W, a, b))
         yabpe::merge_word(w, W, freqs[i], a, b, c, sink);
     }
     next_id += c == next_id ? 1 : 0;
@@ -501,7 +559,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int k = 0; k < kNumPhases; ++k) phases[k] += ph[k];
 }
 
-cudaError_t launch(int ctas, size_t smem, cudaStream_t st, int* words,
+using Kernel = void (*)(int*, const int*, int*, int*, int*, int*, int*, int*,
+                       int*, int*, long long*, int, int, int, int, int, int,
+                       int, int);
+
+// The instantiation for a token layout and a word width.
+Kernel kernel_for(bool tok_global, int W) {
+  const bool wide = W > yabpe::kMaxWidth;
+  if (tok_global) return wide ? fused_kernel<true, true> : fused_kernel<true, false>;
+  return wide ? fused_kernel<false, true> : fused_kernel<false, false>;
+}
+
+const Kernel kKernels[] = {fused_kernel<false, false>, fused_kernel<false, true>,
+                          fused_kernel<true, false>, fused_kernel<true, true>};
+
+cudaError_t launch(Kernel kernel, int ctas, size_t smem, cudaStream_t st, int* words,
                    const int* freqs, int* counts, int* row_max,
                    int* token_bytes, int* token_len, int* lex_rank,
                    int* merges, int* scalars, int* out, long long* phases,
@@ -519,7 +591,7 @@ cudaError_t launch(int ctas, size_t smem, cudaStream_t st, int* words,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, fused_kernel, words, freqs, counts, row_max,
+  return cudaLaunchKernelEx(&cfg, kernel, words, freqs, counts, row_max,
                             token_bytes, token_len, lex_rank, merges, scalars,
                             out, phases, N, W, V, L, step_begin, step_end,
                             min_frequency, select_n);
@@ -527,7 +599,9 @@ cudaError_t launch(int ctas, size_t smem, cudaStream_t st, int* words,
 
 }  // namespace
 
-extern "C" int yabpe_fused_max_width() { return yabpe::kMaxWidth; }
+// The widest word the narrow apply (merge_word) takes; K1 takes any width
+// >= 2, past this one through merge_word_wide.
+extern "C" int yabpe_fused_narrow_width() { return yabpe::kMaxWidth; }
 
 extern "C" int yabpe_fused_select_stripes() { return kStripes; }
 
@@ -537,31 +611,57 @@ extern "C" const char* yabpe_fused_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Sets the kernel's function attributes on the current device: non-portable
-// cluster sizes, and dynamic shared memory up to the card's opt-in limit.
-// Once per process and device (the wrapper caches it). Returns a cudaError_t.
-extern "C" int yabpe_fused_prepare() {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
+// The dynamic shared memory a block of `kernel` may have on the current
+// device: the card's opt-in limit less the kernel's static shared memory.
+static cudaError_t dynamic_smem_limit(Kernel kernel, int* limit) {
   int dev = 0, optin = 0;
   cudaFuncAttributes attrs;
+  cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                     dev)) != cudaSuccess ||
-      (err = cudaFuncGetAttributes(&attrs, fused_kernel)) != cudaSuccess)
-    return static_cast<int>(err);
-  return static_cast<int>(cudaFuncSetAttribute(
-      fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      optin - static_cast<int>(attrs.sharedSizeBytes)));
+      (err = cudaFuncGetAttributes(&attrs, kernel)) != cudaSuccess)
+    return err;
+  *limit = optin - static_cast<int>(attrs.sharedSizeBytes);
+  return cudaSuccess;
 }
 
-// CTAs of the cluster for N words at [V, L] vocab tensors on the current
-// device: enough to give every word a thread, at most 16, fewer where a
-// cluster that large does not fit; minus the cudaError_t on a failure.
-// Once per problem shape (the wrapper caches it).
-extern "C" int yabpe_fused_cluster_ctas(int N, int V, int L) {
-  const size_t smem = smem_bytes(V, L, false);
+// Sets the four kernels' function attributes on the current device:
+// non-portable cluster sizes, and dynamic shared memory up to the card's
+// opt-in limit. Once per process and device (the wrapper caches it).
+// Returns a cudaError_t.
+extern "C" int yabpe_fused_prepare() {
+  for (Kernel kernel : kKernels) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int limit = 0;
+    if (err != cudaSuccess || (err = dynamic_smem_limit(kernel, &limit)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    limit)) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// Where CTA 0 keeps the token bytes at [V, L] vocab tensors on the current
+// device: 0 in shared memory where they fit, 1 in device memory where not;
+// minus the cudaError_t on a failure. Once per (V, L) (the wrapper caches
+// it).
+extern "C" int yabpe_fused_token_layout(int V, int L) {
+  int limit = 0;
+  const cudaError_t err = dynamic_smem_limit(fused_kernel<false, false>, &limit);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return smem_bytes(V, L, kTokShared) <= static_cast<size_t>(limit) ? 0 : 1;
+}
+
+// CTAs of the cluster for N words of width W at [V, L] vocab tensors in
+// the given token layout on the current device: enough to give every word
+// a thread, at most 16, fewer where a cluster that large does not fit;
+// minus the cudaError_t on a failure. Once per problem shape (the wrapper
+// caches it).
+extern "C" int yabpe_fused_cluster_ctas(int N, int W, int V, int L, int tok_global) {
+  const Kernel kernel = kernel_for(tok_global != 0, W);
+  const size_t smem = smem_bytes(V, L, tok_global ? kTokGlobal : kTokShared);
   for (int ctas = min(max((N + kThreads - 1) / kThreads, 1), kMaxCtas);
        ctas >= 1; --ctas) {
     cudaLaunchConfig_t cfg = {};
@@ -577,7 +677,7 @@ extern "C" int yabpe_fused_cluster_ctas(int N, int V, int L) {
     cfg.numAttrs = 1;
     int clusters = 0;
     const cudaError_t err =
-        cudaOccupancyMaxActiveClusters(&clusters, fused_kernel, &cfg);
+        cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return -static_cast<int>(err);
     if (clusters >= 1) return ctas;
   }
@@ -585,19 +685,22 @@ extern "C" int yabpe_fused_cluster_ctas(int N, int V, int L) {
 }
 
 // Runs merge steps [step_begin, step_end) in one launch of one
-// `ctas`-CTA cluster on `stream`, without syncing; adds the phase timer to
-// `phases` ([kNumPhases] int64) unless it is null. Returns the launch's
-// cudaError_t, 0 on success.
+// `ctas`-CTA cluster on `stream`, without syncing, with the token bytes in
+// shared memory (tok_global 0) or in device memory (1); adds the phase
+// timer to `phases` ([kNumPhases] int64) unless it is null. Returns the
+// launch's cudaError_t, 0 on success.
 extern "C" int yabpe_fused_merge_chunk(
     int* words, const int* freqs, int* counts, int* row_max, int* token_bytes,
     int* token_len, int* lex_rank, int* merges, int* scalars,
     long long* phases, int N, int W, int V, int L, int step_begin,
-    int step_end, int min_frequency, int ctas, void* stream) {
-  if (W > yabpe::kMaxWidth || W < 2 || V > 0xFFFF || V < 1 || L < 2 ||
-      L % 2 || ctas < 1 || ctas > kMaxCtas)
+    int step_end, int min_frequency, int ctas, int tok_global, void* stream) {
+  if (W < 2 || V > 0xFFFF || V < 1 || L < 2 || L % 2 || ctas < 1 ||
+      ctas > kMaxCtas)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = launch(
-      ctas, smem_bytes(V, L, false), static_cast<cudaStream_t>(stream), words, freqs,
+      kernel_for(tok_global != 0, W), ctas,
+      smem_bytes(V, L, tok_global ? kTokGlobal : kTokShared),
+      static_cast<cudaStream_t>(stream), words, freqs,
       counts, row_max, token_bytes, token_len, lex_rank, merges, scalars,
       nullptr, phases, N, W, V, L, step_begin, step_end, min_frequency, 0);
   const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
@@ -613,7 +716,8 @@ extern "C" int yabpe_fused_select(const int* counts, int* row_max,
   if (V > 0xFFFF || V < 1 || next_id < 1 || next_id > V)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
-      launch(1, smem_bytes(V, 0, true), static_cast<cudaStream_t>(stream), nullptr,
+      launch(fused_kernel<false, false>, 1, smem_bytes(V, 0, kSelectOnly),
+             static_cast<cudaStream_t>(stream), nullptr,
              nullptr, const_cast<int*>(counts), row_max, nullptr, nullptr,
              lex_rank, nullptr, nullptr, out, nullptr, 0, 2, V, 1, 0, 0,
              min_frequency, next_id);

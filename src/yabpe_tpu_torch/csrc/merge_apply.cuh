@@ -5,10 +5,13 @@
 // -> c in place, compacts the word, and hands the pairs of the changed
 // window to a sink: old pairs -freq, new pairs +freq. The pairs outside
 // the window are the same before and after, so the window's cells carry
-// the word's whole net delta. Two forms: merge_word on a word in memory,
-// and plan_regs + merge_regs on a word held in registers (a fixed width
-// bucket, every index static), which emits the same cells in the same
-// order.
+// the word's whole net delta. Two forms emit the same cells in the same
+// order: merge_word on a word in memory of at most kMaxWidth symbols
+// (copied to per-thread arrays), and plan_regs + merge_regs on a word
+// held in registers (a fixed width bucket, every index static). A third,
+// merge_word_wide, takes a word in memory of any width in place, read
+// in batches, and hands TableSink only the window's changed pairs (the
+// same net delta).
 //
 // Sinks. TableSink folds the cells into the [V, V] count table (K1, K2);
 // LogSink appends them to one step's cell log (K3). A sink has:
@@ -128,6 +131,85 @@ __device__ __forceinline__ void merge_word(int* w, int W, int f, int a, int b,
   for (int k = lo; k <= new_hi; ++k) sink.add(t[k], t[k + 1], f);
   for (int k = 0; k < m; ++k) w[k] = t[k];
   for (int k = m; k < n; ++k) w[k] = -1;
+}
+
+// Symbols a wide walk reads at once: kWalk + 1 independent loads (the one
+// past the batch for the pair that straddles it), then kWalk symbols from
+// registers. A thread's word row is 4W bytes from its neighbours', so a
+// warp's rows overflow L1 and each load waits on L2; batched, a walk of
+// 304 symbols waits 19 times, not 304.
+constexpr int kWalk = 16;
+
+// w[base, base + kWalk] into registers, -1 at and past `end`.
+__device__ __forceinline__ void load_walk(const int* w, int end, int base,
+                                          int (&s)[kWalk + 1]) {
+#pragma unroll
+  for (int j = 0; j <= kWalk; ++j) s[j] = base + j < end ? w[base + j] : -1;
+}
+
+// merge_word on a word of any width, in place, with no per-thread array
+// but a batch of kWalk symbols; only K1 takes words past kMaxWidth. It
+// hands TableSink only the pairs that change, not the whole window: an
+// old pair that touches a take, and a new pair that touches a merged
+// symbol. The pairs between two takes that touch neither are the same on
+// either side, so the net delta is merge_word's; a wide word whose takes
+// lie far apart (a run of a few letters, hundreds long) has a window of
+// hundreds of pairs but only about five changed pairs a take. Two walks,
+// negatives fenced before positives as merge_word does:
+//   1. a read-only walk finds the takes (a match is taken unless the
+//      match before it was) and subtracts each old pair (j - 1, j) where
+//      a take holds j - 2, j - 1 or j (that is, where j - 1 or j lies in
+//      a take);
+//   2. the word is compacted from the first take on (the write index
+//      never passes the read index, and each batch is read before any of
+//      it is written), and each new pair is added as its right symbol is
+//      written, where either symbol is a merged one.
+// A word without (a, b) costs walk 1 and changes nothing, so the caller
+// need not test it first.
+__device__ __forceinline__ void merge_word_wide(int* w, int W, int f, int a,
+                                                int b, int c, TableSink& sink) {
+  int n = 0, first = -1, prev = -1;
+  bool t2 = false, t1 = false, end = false;  // takes at j - 2 and j - 1
+  for (int base = 0; base < W && !end; base += kWalk) {
+    int s[kWalk + 1];
+    load_walk(w, W, base, s);
+#pragma unroll
+    for (int j = 0; j < kWalk; ++j) {
+      end = end || s[j] < 0;
+      if (end) continue;
+      const bool t0 = !t1 && s[j] == a && s[j + 1] == b;
+      if (t0 && first < 0) first = n;
+      if (n > 0 && (t2 || t1 || t0)) sink.sub(prev, s[j], f);
+      t2 = t1;
+      t1 = t0;
+      prev = s[j];
+      ++n;
+    }
+  }
+  if (first < 0) return;
+  sink.fence();
+  int q = first;
+  int left = first > 0 ? w[first - 1] : -1;
+  bool left_merged = false, skip = false;  // skip: taken by the last batch
+  for (int base = first; base < n; base += kWalk) {
+    int s[kWalk + 1];
+    load_walk(w, n, base, s);
+#pragma unroll
+    for (int j = 0; j < kWalk; ++j) {
+      if (skip || s[j] < 0) {
+        skip = false;
+        continue;
+      }
+      const bool take = s[j] == a && s[j + 1] == b;
+      const int sym = take ? c : s[j];
+      skip = take;
+      if (left >= 0 && (take || left_merged)) sink.add(left, sym, f);
+      w[q++] = sym;
+      left = sym;
+      left_merged = take;
+    }
+  }
+  for (int k = q; k < n; ++k) w[k] = -1;
 }
 
 // A merge of (a, b) in a word held in registers, -1 padded to WB, planned

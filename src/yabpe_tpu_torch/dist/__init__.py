@@ -10,6 +10,7 @@ and slabs.
 from yabpe_tpu_torch.dist.mesh import (
     make_2d_mesh,
     make_data_mesh,
+    multihost_initialize,
     multiprocess_initialize,
 )
 from yabpe_tpu_torch.dist.sharded import run_sharded_merge_loop
@@ -17,6 +18,7 @@ from yabpe_tpu_torch.dist.sharded import run_sharded_merge_loop
 __all__ = [
     "make_data_mesh",
     "make_2d_mesh",
+    "multihost_initialize",
     "multiprocess_initialize",
     "run_sharded_merge_loop",
 ]

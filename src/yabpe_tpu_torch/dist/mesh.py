@@ -20,7 +20,9 @@ card of its own, ``"gloo"`` on the CPU, or for several processes on one
 card (NCCL refuses two ranks on one device). Gloo takes device tensors
 for ``all_gather`` and ``all_reduce`` and moves them through host memory
 itself. :func:`multiprocess_initialize` sets up the process group from
-torchrun's environment.
+torchrun's environment over a given backend, and
+:func:`multihost_initialize`, the JAX package's name, over the backend the
+machine suggests.
 """
 
 from __future__ import annotations
@@ -186,12 +188,22 @@ def multiprocess_initialize(backend: str) -> None:
     dist.init_process_group(backend=backend)
 
 
+def multihost_initialize() -> None:
+    """Initialize ``torch.distributed`` when running under a multi-process
+    launcher: :func:`multiprocess_initialize` over ``"nccl"`` where CUDA is
+    available and ``"gloo"`` otherwise. A no-op without the launcher's
+    variables (one process), as the JAX package's ``multihost_initialize``
+    is without its coordinator's."""
+    multiprocess_initialize("nccl" if torch.cuda.is_available() else "gloo")
+
+
 __all__ = [
     "BACKENDS",
     "DataMesh",
     "all_gather_host",
     "make_2d_mesh",
     "make_data_mesh",
+    "multihost_initialize",
     "multiprocess_initialize",
     "process_info",
 ]

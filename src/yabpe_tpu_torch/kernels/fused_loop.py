@@ -7,12 +7,17 @@ The port's counterpart of the TPU kernel
 select of the highest count over the full [V, V] table. The kernel is
 CUDA C++ in ``csrc/fused_loop.cu``, one persistent launch of one
 thread-block cluster per chunk with a lazy select over a maintained row
-max; its design note is at the top of that file.
+max; its design note is at the top of that file. Like the TPU kernel it
+takes words of any width: past :data:`NARROW_WIDTH` symbols its apply
+works in place in device memory, and where the token bytes do not fit the
+first CTA's shared memory they stay in device memory
+(:func:`token_layout`).
 
 The parts that live here:
 
 - :class:`FusedState`, the state tensors (all int32, one device): the
-  fields of ``kernels.hbm_loop.HbmState`` without ``stats``;
+  fields of ``kernels.hbm_loop.HbmState`` without ``stats``, at any word
+  width >= 2;
 - :func:`fused_merge_chunk`, the wrapper: it runs one chunk of merge
   steps and updates the state **in place**. For CUDA tensors it launches
   the kernel (built on first use; its launch shape queried once per
@@ -48,6 +53,14 @@ from yabpe_tpu_torch.kernels.hbm_loop import (
     cluster_select_reference,
     plain_merge_steps,
 )
+
+#: Widest word of the kernel's narrow apply (the one K2 and K3 share,
+#: per-thread arrays); wider words take its in-place apply.
+NARROW_WIDTH = MAX_WORD_WIDTH
+
+#: Where the kernel's first CTA keeps the token bytes: in its shared
+#: memory, or in device memory where they do not fit there.
+TOKEN_LAYOUTS = ("shared", "global")
 
 #: Kernel launches by wrapper; a caller zeroes an entry to count a run.
 LAUNCHES: dict[str, int] = {"fused_merge_chunk": 0, "fused_select_step": 0}
@@ -108,6 +121,7 @@ def fused_merge_chunk(
     num_merges: int,
     min_frequency: int,
     phases: torch.Tensor | None = None,
+    _layout: str | None = None,
 ) -> None:
     """Run merge steps [chunk_start, chunk_start + chunk_size), capped at
     ``num_merges``, updating ``state`` in place.
@@ -116,7 +130,10 @@ def fused_merge_chunk(
     and without a sync; CPU tensors through the twin. Any other device, a
     build failure or a launch failure raises. ``phases``, an int64
     [len(PHASES)] tensor on the state's CUDA device, receives the kernel's
-    phase timer (a measurement; the twin has none).
+    phase timer (a measurement; the twin has none). The layout of the
+    token bytes is :func:`token_layout`'s; ``_layout``, a hook for tests
+    and measurements, forces one of :data:`TOKEN_LAYOUTS` ("shared" where
+    the bytes do not fit raises).
     """
     state.check()
     device = state.words.device
@@ -142,7 +159,10 @@ def fused_merge_chunk(
         raise ValueError(f"phases must be int64 [{len(PHASES)}] on {device}")
     n, w = state.words.shape
     v, byte_width = state.token_bytes.shape
-    ctas = cluster_ctas(n, v, byte_width, device)
+    layout = token_layout(v, byte_width, device) if _layout is None else _layout
+    if layout not in TOKEN_LAYOUTS:
+        raise ValueError(f"layout must be one of {TOKEN_LAYOUTS}, got {layout!r}")
+    ctas = cluster_ctas(n, v, byte_width, device, width=w, _layout=layout)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -150,7 +170,7 @@ def fused_merge_chunk(
             *(t.data_ptr() for t in state.tensors()),
             None if phases is None else phases.data_ptr(),
             n, w, v, byte_width, chunk_start, step_end, min_frequency, ctas,
-            stream,
+            TOKEN_LAYOUTS.index(layout), stream,
         )
     _raise_on_error(lib, rc, "fused_merge_chunk")
     LAUNCHES["fused_merge_chunk"] += 1
@@ -162,14 +182,31 @@ def _raise_on_error(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")
 
 
-def cluster_ctas(n_words: int, vocab_cap: int, byte_width: int, device=None) -> int:
-    """CTAs of the kernel's cluster for ``n_words`` words and [vocab_cap,
-    byte_width] vocab tensors on a CUDA ``device``: enough that every word
+def _device_index(device) -> int:
+    device = torch.device("cuda" if device is None else device)
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def token_layout(vocab_cap: int, byte_width: int, device=None) -> str:
+    """Where the kernel keeps [vocab_cap, byte_width] token bytes on a
+    CUDA ``device``: "shared" where they fit its first CTA's shared memory
+    as u16, else "global". Queried once per process and shape."""
+    return _token_layout(_device_index(device), vocab_cap, byte_width)
+
+
+def cluster_ctas(
+    n_words: int, vocab_cap: int, byte_width: int, device=None, *,
+    width: int = 2, _layout: str | None = None,
+) -> int:
+    """CTAs of the kernel's cluster for ``n_words`` words of ``width``
+    symbols and [vocab_cap, byte_width] vocab tensors in
+    :func:`token_layout`'s layout (``_layout`` forces one, as in
+    :func:`fused_merge_chunk`) on a CUDA ``device``: enough that every word
     has a thread, at most 16, fewer where a cluster that large does not
     fit. Queried once per process and shape."""
-    device = torch.device("cuda" if device is None else device)
-    index = torch.cuda.current_device() if device.index is None else device.index
-    return _cluster_ctas(index, n_words, vocab_cap, byte_width)
+    index = _device_index(device)
+    layout = _layout or _token_layout(index, vocab_cap, byte_width)
+    return _cluster_ctas(index, n_words, max(width, 2), vocab_cap, byte_width, layout)
 
 
 @functools.cache
@@ -181,11 +218,25 @@ def _prepare(device_index: int) -> None:
 
 
 @functools.cache
-def _cluster_ctas(device_index: int, n_words: int, vocab_cap: int, byte_width: int) -> int:
+def _token_layout(device_index: int, vocab_cap: int, byte_width: int) -> str:
     _prepare(device_index)
     lib = _library()
     with torch.cuda.device(device_index):
-        ctas = lib.yabpe_fused_cluster_ctas(n_words, vocab_cap, byte_width)
+        rc = lib.yabpe_fused_token_layout(vocab_cap, byte_width)
+    _raise_on_error(lib, -rc if rc < 0 else 0, "fused_merge_chunk layout query")
+    return TOKEN_LAYOUTS[rc]
+
+
+@functools.cache
+def _cluster_ctas(
+    device_index: int, n_words: int, width: int, vocab_cap: int, byte_width: int, layout: str,
+) -> int:
+    _prepare(device_index)
+    lib = _library()
+    with torch.cuda.device(device_index):
+        ctas = lib.yabpe_fused_cluster_ctas(
+            n_words, width, vocab_cap, byte_width, TOKEN_LAYOUTS.index(layout)
+        )
     _raise_on_error(lib, -ctas if ctas < 0 else 0, "fused_merge_chunk cluster query")
     return ctas
 
@@ -246,7 +297,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_loop")
     lib.yabpe_fused_merge_chunk.restype = ctypes.c_int
     lib.yabpe_fused_merge_chunk.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     lib.yabpe_fused_select.restype = ctypes.c_int
     lib.yabpe_fused_select.argtypes = (
@@ -254,14 +305,16 @@ def _library() -> ctypes.CDLL:
     )
     lib.yabpe_fused_error_string.restype = ctypes.c_char_p
     lib.yabpe_fused_error_string.argtypes = [ctypes.c_int]
-    for name in ("yabpe_fused_max_width", "yabpe_fused_select_stripes",
+    for name in ("yabpe_fused_narrow_width", "yabpe_fused_select_stripes",
                  "yabpe_fused_num_phases", "yabpe_fused_prepare"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
+    lib.yabpe_fused_token_layout.restype = ctypes.c_int
+    lib.yabpe_fused_token_layout.argtypes = [ctypes.c_int] * 2
     lib.yabpe_fused_cluster_ctas.restype = ctypes.c_int
-    lib.yabpe_fused_cluster_ctas.argtypes = [ctypes.c_int] * 3
-    if lib.yabpe_fused_max_width() != MAX_WORD_WIDTH:
-        raise RuntimeError("csrc/fused_loop.cu disagrees on MAX_WORD_WIDTH")
+    lib.yabpe_fused_cluster_ctas.argtypes = [ctypes.c_int] * 5
+    if lib.yabpe_fused_narrow_width() != NARROW_WIDTH:
+        raise RuntimeError("csrc/fused_loop.cu disagrees on NARROW_WIDTH")
     if lib.yabpe_fused_select_stripes() != SELECT_STRIPES:
         raise RuntimeError("csrc/fused_loop.cu disagrees on SELECT_STRIPES")
     if lib.yabpe_fused_num_phases() != len(PHASES):
@@ -322,12 +375,15 @@ def rank_search_reference(
 
 __all__ = [
     "LAUNCHES",
+    "NARROW_WIDTH",
     "PHASES",
     "SELECT_STRIPES",
+    "TOKEN_LAYOUTS",
     "FusedState",
     "cluster_ctas",
     "fused_merge_chunk",
     "fused_merge_chunk_reference",
     "fused_select_step",
     "rank_search_reference",
+    "token_layout",
 ]

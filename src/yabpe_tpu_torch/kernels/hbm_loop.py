@@ -69,7 +69,7 @@ STAT_REPLAYED = 8  # replayed steps, which add to none of the slots above
 STAT_NS_REPLAY = 9  # the step kernel of the replayed steps, whole
 N_STATS = 10
 
-#: Longest word (in symbols) the apply kernel takes.
+#: Longest word (in symbols) the apply kernel of K2 (and K3) takes.
 MAX_WORD_WIDTH = 64
 
 #: CTAs in the select's thread-block cluster where a cluster of 16 fits.
@@ -127,7 +127,8 @@ def check_state(state) -> None:
     """Raise ValueError unless a merge-loop state (this module's
     :class:`HbmState` or ``kernels.fused_loop.FusedState``) has the
     kernels' layout: contiguous int32 tensors on one device, consistent
-    shapes, and a word width in [2, MAX_WORD_WIDTH]."""
+    shapes, and a word width of at least 2, at most MAX_WORD_WIDTH for an
+    HbmState (K2's apply; K1, like the TPU kernel, takes any width)."""
     name = type(state).__name__
     n, w = state.words.shape
     v = state.counts.shape[0]
@@ -149,7 +150,9 @@ def check_state(state) -> None:
             )
     if state.token_bytes.shape[0] != v or state.merges.shape[1:] != (3,):
         raise ValueError(f"{name} token_bytes/merges shapes disagree")
-    if not 2 <= w <= MAX_WORD_WIDTH:
+    if w < 2:
+        raise ValueError(f"word width {w} below 2")
+    if isinstance(state, HbmState) and w > MAX_WORD_WIDTH:
         raise ValueError(f"word width {w} outside [2, {MAX_WORD_WIDTH}]")
 
 
@@ -368,10 +371,10 @@ def plain_merge_steps(
     ``tally``, when given, accumulates the bytes that the chunk's steps
     need at least (the least work a kernel could do): a row max and one
     verified count row (8V per live step; a replayed step reads neither),
-    the words that hold the pair (read
-    and written, with their frequencies) and the distinct changed cells
-    (read and written); and, under ``affected_words``, how many words
-    the merges changed.
+    the live symbols of the words that hold the pair (read and written,
+    up to the first -1 and not the padding, with their frequencies) and
+    the distinct changed cells (read and written); and, under
+    ``affected_words``, how many words the merges changed.
     """
     v = s.counts.shape[0]
     scal = s.scalars.tolist()
@@ -591,6 +594,9 @@ def merge_rows(
 def _apply_merge(s, a: int, b: int, c: int, tally: dict[str, int] | None) -> None:
     """Leftmost non-overlapping (a, b) -> c in every word that holds the
     pair, and the matching count deltas."""
+    if tally is not None:  # the live symbols of the words that change
+        hit = ((s.words[:, :-1] == a) & (s.words[:, 1:] == b)).any(dim=1)
+        live = int((s.words[hit] >= 0).sum())
     applied = merge_rows(s.words, s.freqs, a, b, c)
     if applied is None:
         return
@@ -599,9 +605,10 @@ def _apply_merge(s, a: int, b: int, c: int, tally: dict[str, int] | None) -> Non
     cells = left.long() * v + right.long()
     s.counts.view(-1).index_add_(0, cells, deltas)
     if tally is not None:
-        w = s.words.shape[1]
         uniq, inverse = torch.unique(cells, return_inverse=True)
         net = torch.zeros_like(uniq).index_add_(0, inverse, deltas.long())
         changed = int((net != 0).sum())
         tally["affected_words"] = tally.get("affected_words", 0) + n
-        tally["bytes"] = tally.get("bytes", 0) + n * (8 * w + 4) + 8 * changed
+        # each changed word: its live symbols read and written, its freq
+        # read; each net-changed cell read and written
+        tally["bytes"] = tally.get("bytes", 0) + 8 * live + 4 * n + 8 * changed

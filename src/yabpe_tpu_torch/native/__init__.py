@@ -4,8 +4,8 @@ Counterpart of yabpe_tpu/native/__init__.py, cut to what the port calls:
 the GPT-2 pre-token scanner and word-frequency counter
 (:class:`NativeCounter`, with the unique-word id scan of the device
 encoder), the strict UTF-8 validator, the special-token
-finder, the host merge loop (:func:`train_host_raw`) and the per-word BPE
-encoder of the tokenizer (:class:`NativeEncoder`). The library is
+finder, the host merge loop (:func:`train_host`, :func:`train_host_raw`)
+and the per-word BPE encoder of the tokenizer (:class:`NativeEncoder`). The library is
 compiled from ``native/yabpe_native.cpp`` at the repository root, unchanged,
 with g++ into this package's own build directory on first use.
 
@@ -247,6 +247,21 @@ def find_specials(
         starts.ctypes.data_as(_P_I64), _i32p(ids), cap,
     )
     return starts[:count], ids[:count]
+
+
+def train_host(
+    word_counts: dict[bytes, int],
+    num_merges: int,
+    min_frequency: int,
+) -> list[tuple[bytes, bytes]]:
+    """Run the native host BPE merge loop over a word -> count mapping:
+    :func:`train_host_raw` over its non-empty words of positive count.
+    Returns the learned merges as byte-string pairs."""
+    items = [(w, c) for w, c in word_counts.items() if c > 0 and len(w) > 0]
+    blob = b"".join(w for w, _ in items)
+    lens = np.array([len(w) for w, _ in items], dtype=np.int32)
+    counts = np.array([c for _, c in items], dtype=np.int64)
+    return train_host_raw(blob, lens, counts, num_merges, min_frequency)
 
 
 def train_host_raw(
@@ -496,6 +511,7 @@ __all__ = [
     "find_specials",
     "load",
     "pretok_offsets",
+    "train_host",
     "train_host_raw",
     "utf8_invalid_at",
 ]

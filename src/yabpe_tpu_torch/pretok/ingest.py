@@ -4,17 +4,21 @@ Counterpart of yabpe_tpu/pretok/ingest.py. Workers aggregate frequency
 counters of unique pre-token byte strings; pair counts are sums, so the
 result is independent of worker count and scheduling.
 
-The native scanner is the ingest path. The ``regex`` path runs only where
-the caller allows it (``require_native=False``) and the native library
-cannot be built; the device route of the trainer never allows it.
+The native scanner is the ingest path; it runs on threads, since ctypes
+releases the GIL. The ``regex`` path runs only where the caller allows it
+(``require_native=False``) and the native library cannot be built; the
+device route of the trainer never allows it. There, as in the JAX
+package, spans go to a pool of threads or, for corpora past 8 MiB or with
+``use_processes=True``, of processes (the regex engine holds the GIL).
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
 from collections import Counter
 from collections.abc import Sequence
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -138,6 +142,7 @@ def count_pretokens(
     max_workers: int = 8,
     align_to_newline: bool = False,
     require_native: bool = True,
+    use_processes: bool | None = None,
 ) -> Counter[bytes]:
     """Count pre-token occurrences across ``files``.
 
@@ -145,11 +150,15 @@ def count_pretokens(
         files: UTF-8 text files. Raises FileNotFoundError on a missing file.
         special_tokens: matched as whole pre-tokens (trainer dialect).
         chunk_size_bytes: span size for parallel workers.
-        max_workers: worker pool size of the native scan.
+        max_workers: worker pool size.
         align_to_newline: end spans at newlines so pre-tokens never straddle
             spans (see chunking.chunk_spans). Off by default for parity.
         require_native: raise when the native scanner cannot be built
-            (True), or count with ``regex`` in this process then (False).
+            (True), or count with ``regex`` then (False).
+        use_processes: on the ``regex`` path, a process pool (True), a
+            thread pool (False), or processes for corpora over 8 MiB
+            (None), as in the JAX package. The native scanner ignores it:
+            it runs on threads.
 
     Returns:
         Counter mapping pre-token UTF-8 bytes to occurrence count.
@@ -167,7 +176,9 @@ def count_pretokens(
         files,
         special_tokens,
         chunk_size_bytes=chunk_size_bytes,
+        max_workers=max_workers,
         align_to_newline=align_to_newline,
+        use_processes=use_processes,
     )
 
 
@@ -176,13 +187,37 @@ def count_pretokens_regex(
     special_tokens: Sequence[str],
     *,
     chunk_size_bytes: int = 8 * 1024 * 1024,
+    max_workers: int = 1,
     align_to_newline: bool = False,
+    use_processes: bool | None = None,
 ) -> Counter[bytes]:
-    """:func:`count_pretokens` through the ``regex`` package, span by span."""
+    """:func:`count_pretokens` through the ``regex`` package: span by span
+    in this thread with one worker or one span, else in a pool of
+    ``max_workers`` threads or processes (``use_processes``; None means
+    processes for corpora over 8 MiB, the JAX package's rule)."""
     specials = tuple(special_tokens)
+    tasks = _spans(files, chunk_size_bytes, align_to_newline)
     total: Counter[bytes] = Counter()
-    for path, start, end in _spans(files, chunk_size_bytes, align_to_newline):
-        total.update(_count_span(path, start, end, specials))
+    if max_workers <= 1 or len(tasks) <= 1:
+        for path, start, end in tasks:
+            total.update(_count_span(path, start, end, specials))
+        return total
+    if use_processes is None:
+        use_processes = sum(os.path.getsize(f) for f in files) > 8 * 1024 * 1024
+    # processes are spawned, not forked: the caller may hold threads
+    # (torch's own), which a fork does not carry over safely
+    pool = (
+        ProcessPoolExecutor(max_workers, mp_context=multiprocessing.get_context("spawn"))
+        if use_processes
+        else ThreadPoolExecutor(max_workers)
+    )
+    with pool:
+        futures = [
+            pool.submit(_count_span, path, start, end, specials)
+            for path, start, end in tasks
+        ]
+        for fut in futures:
+            total.update(fut.result())
     return total
 
 

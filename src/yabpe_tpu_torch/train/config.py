@@ -2,10 +2,9 @@
 
 Counterpart of yabpe_tpu/train/config.py: field-for-field parity with the
 reference dataclass (its trainer.py:17-38), the engine knobs the port
-acts on, with the JAX package's defaults, and ``device``. The JAX
-package's ``ingest_processes`` has no counterpart here. ``seed`` is kept
-for interface compatibility; training is fully deterministic and never
-uses it.
+acts on, with the JAX package's defaults, and ``device``. ``seed`` is
+kept for interface compatibility; training is fully deterministic and
+never uses it.
 """
 
 from __future__ import annotations
@@ -31,6 +30,10 @@ class BBPETrainerConfig:
             (default); "numpy" runs the host oracle loop.
         merge_chunk_size: merge steps per call of the merge-loop kernel; the
             host reads the stop flag once per chunk.
+        ingest_processes: use a process pool for the ``regex`` ingest path
+            (the numpy backend without the native library); None = auto
+            (processes for corpora over 8 MiB). Ignored by the native
+            scanner, which releases the GIL and runs on threads.
         align_chunks_to_newline: end ingestion chunks at newlines so
             pre-tokens never straddle chunk boundaries (off for strict
             reference parity).
@@ -57,9 +60,10 @@ class BBPETrainerConfig:
             the data-sharded loop).
         use_fused_kernel: on the device route, run the merge loop on the
             small-vocabulary kernel (kernels/fused_loop.py) (True), never
-            (False), or when the problem fits its admission and has no
-            word of more than 64 symbols (None). True past either raises
-            ValueError. Results are identical either way.
+            (False), or when the problem fits its admission, at any word
+            width (None). True past its admission or its limits (ids in 16
+            bits, pair mass below 2^31) raises ValueError. Results are
+            identical either way.
         use_native_loop: True runs the native C++ host merge loop; None or
             False runs the device merge loop. Results are identical either
             way.
@@ -96,6 +100,7 @@ class BBPETrainerConfig:
 
     backend: str = "torch"
     merge_chunk_size: int = 2048
+    ingest_processes: bool | None = None
     align_chunks_to_newline: bool = False
     data_shards: int | None = None
     vocab_shards: int = 1

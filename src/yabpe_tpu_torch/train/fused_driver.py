@@ -80,11 +80,11 @@ def run_fused_merge_loop(
 ) -> np.ndarray:
     """Run the merge loop on the kernel; returns [num_merges, 3] int32 ids.
 
-    Admission is ``hbm_driver.admit``'s: total pair mass below 2^31 (the
-    int32 table's exactness), ids inside the 16-bit lex keys, words of at
-    most MAX_WORD_WIDTH symbols and the state within the device's free
-    memory. ``on_chunk(merges_ids, steps_done)``, when given, gets the merge
-    record after every chunk.
+    Admission is K1's own in ``hbm_driver.admit(..., fused=True)``: total
+    pair mass below 2^31 (the int32 table's exactness), words of any
+    width, and the state within the device's free memory (the kernel's
+    entry refuses ids past 16 bits). ``on_chunk(merges_ids, steps_done)``, when given, gets the
+    merge record after every chunk.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -92,7 +92,7 @@ def run_fused_merge_loop(
     base_tokens = list(base_vocab.tokens())
     hbm_driver.admit(
         table, max(vocab_cap, len(base_tokens)), num_merges,
-        hbm_driver.byte_width(table.width, base_tokens), device,
+        hbm_driver.byte_width(table.width, base_tokens), device, fused=True,
     )
     state = fused_state_from_numpy(
         table.words, table.freqs, base_tokens, vocab_cap, device,

@@ -9,10 +9,10 @@ and ``replay_until`` at its step count, as the JAX driver does (``:405``):
 the kernel replays those steps, then trains live.
 
 :func:`kernel_limits` is the admission as a predicate (the reason a
-problem is past the limits that K1, K2 and K3 share, or None), and
-:func:`admit` its raising form, so that the trainer's route and the
-driver's check never disagree (the rule of the JAX driver's
-``plan_buckets``, ``:121-124``). A problem past them goes to the fallback
+problem is past the limits of K2 and K3, or with ``fused=True`` of K1, or
+None), and :func:`admit` its raising form, so that the trainer's route
+and :func:`run_hbm_merge_loop`'s own check never disagree (the rule of
+the JAX module's ``plan_buckets``, ``:121-124``). A problem past them goes to the fallback
 engines (train/bigvocab.py, train/incremental.py); one whose state does
 not fit the device's free memory raises on every route
 (:func:`check_memory`).
@@ -92,12 +92,15 @@ def state_bytes(n_words: int, width: int, vocab_cap: int, token_width: int,
     )
 
 
-def kernel_limits(table: WordTable, vocab_cap: int) -> str | None:
+def kernel_limits(table: WordTable, vocab_cap: int, *, fused: bool = False) -> str | None:
     """Why the merge kernels cannot take this problem, or None where they
-    can: vocab <= MAX_VOCAB_CAP (ids travel in 16 bits), word width <=
-    MAX_WORD_WIDTH (the apply's per-thread arrays) and total pair mass
-    below 2^31 (the int32 count table's exactness)."""
-    if vocab_cap > MAX_VOCAB_CAP or max(table.width, 2) > MAX_WORD_WIDTH:
+    can. K2 and K3: vocab <= MAX_VOCAB_CAP (ids travel in 16 bits), word
+    width <= MAX_WORD_WIDTH (the apply's per-thread arrays) and total pair
+    mass below 2^31 (the int32 count table's exactness). K1
+    (``fused=True``): the same pair mass only, at any width; its vocab is
+    kept far inside 16-bit ids by ``fused_driver.fused_applicable``'s
+    48 MB plan, and csrc/fused_loop.cu's entry check refuses the rest."""
+    if not fused and (vocab_cap > MAX_VOCAB_CAP or max(table.width, 2) > MAX_WORD_WIDTH):
         return (
             f"vocab {vocab_cap} / word width {table.width} exceed the merge "
             f"kernels' limits (vocab <= {MAX_VOCAB_CAP}, width <= "
@@ -125,10 +128,10 @@ def check_memory(need: int, device: torch.device) -> None:
 
 
 def admit(table: WordTable, vocab_cap: int, num_merges: int,
-          token_width: int, device: torch.device) -> None:
+          token_width: int, device: torch.device, *, fused: bool = False) -> None:
     """The raising form of :func:`kernel_limits` (HbmKernelUnsupported),
     then :func:`check_memory` for the kernel's state."""
-    reason = kernel_limits(table, vocab_cap)
+    reason = kernel_limits(table, vocab_cap, fused=fused)
     if reason is not None:
         raise HbmKernelUnsupported(f"{reason}; {_ENGINES}")
     check_memory(

@@ -17,8 +17,9 @@ validation). Routing, which in the port is explicit:
   With one shard, as the JAX trainer's ``_run_single_device``
   (``:329-444``) routes, in this order:
   1. the small-vocabulary kernel K1 (kernels/fused_loop.py) for problems
-     within its admission and the kernels' limits, without
-     ``checkpoint_dir`` (:meth:`BBPETrainer._should_use_fused`);
+     within its admission and its own limits (``hbm_driver.kernel_limits
+     (..., fused=True)``: pair mass below 2^31, any word width),
+     without ``checkpoint_dir`` (:meth:`BBPETrainer._should_use_fused`);
   2. the large-vocabulary kernel K2 (kernels/hbm_loop.py) for problems
      within the kernels' limits (``hbm_driver.kernel_limits``: vocab <=
      63,488, words of at most 64 symbols, pair mass below 2^31);
@@ -110,7 +111,8 @@ class BBPETrainer:
         t0 = time.perf_counter()
         if cfg.backend == "numpy":
             counter = count_pretokens(
-                files, cfg.special_tokens, require_native=False, **ingest_args
+                files, cfg.special_tokens, require_native=False,
+                use_processes=cfg.ingest_processes, **ingest_args
             )
         elif process_info()[0] > 1:
             # each process ingests its share of the files; the tables are
@@ -297,12 +299,12 @@ class BBPETrainer:
             chunk_size=cfg.merge_chunk_size,
             device=device,
         )
-        limits = hbm_driver.kernel_limits(table, vocab_cap)
-        if self._should_use_fused(table, vocab_cap, limits):
+        if self._should_use_fused(table, vocab_cap):
             from yabpe_tpu_torch.train.fused_driver import run_fused_merge_loop
 
             self._log_route("K1")
             return run_fused_merge_loop(table, base, **kw)
+        limits = hbm_driver.kernel_limits(table, vocab_cap)
         if self._should_use_hbm(limits):
             self._log_route("K2")
             return hbm_driver.run_hbm_merge_loop(
@@ -395,23 +397,22 @@ class BBPETrainer:
             )
         return True
 
-    def _should_use_fused(
-        self, table: WordTable, vocab_cap: int, limits: str | None
-    ) -> bool:
+    def _should_use_fused(self, table: WordTable, vocab_cap: int) -> bool:
         """Route a device problem to the small-vocabulary kernel K1.
 
         Counterpart of the JAX trainer's ``_should_use_fused``, with the
         same admission (``fused_applicable``, copied verbatim) so that both
-        packages send the same problems to this kernel, and the kernels'
-        limits (``limits``, from ``hbm_driver.kernel_limits``): K1's apply
-        takes words of at most 64 symbols, where the TPU kernel takes any
-        width within its VMEM budget. ``False`` never takes it, nor does a
-        checkpointed run; ``True`` takes it or raises ValueError past
-        either limit. Unlike the JAX package, auto (``None``) does not ask
-        for a TPU: there the test keeps the Pallas kernel off backends
-        where it would run interpreted, while here the kernel is the
-        device route's own, on the card or as its plain twin on the CPU.
+        packages send the same problems to this kernel, words of any width
+        included, and K1's own limits (``hbm_driver.kernel_limits(...,
+        fused=True)``: pair mass below 2^31). ``False``
+        never takes it, nor does a checkpointed run; ``True`` takes it or
+        raises ValueError past either. Unlike the JAX package, auto
+        (``None``) does not ask for a TPU: there the test keeps the Pallas
+        kernel off backends where it would run interpreted, while here the
+        kernel is the device route's own, on the card or as its plain twin
+        on the CPU.
         """
+        from yabpe_tpu_torch.train import hbm_driver
         from yabpe_tpu_torch.train.fused_driver import fused_applicable
 
         cfg = self.config
@@ -423,13 +424,10 @@ class BBPETrainer:
             vocab_cap,
             max(table.width, 2),
         )
+        limits = hbm_driver.kernel_limits(table, vocab_cap, fused=True)
         if cfg.use_fused_kernel is True:
             if limits is not None:
-                raise ValueError(
-                    f"use_fused_kernel=True but {limits}: K1's counterpart "
-                    "caps words at 64 symbols (ROADMAP.md, queue 1 item 3: "
-                    "K1's word width)"
-                )
+                raise ValueError(f"use_fused_kernel=True but {limits}")
             if not fits:
                 raise ValueError(
                     "use_fused_kernel=True but the problem exceeds the "

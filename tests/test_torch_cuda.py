@@ -94,9 +94,10 @@ def select_state(name: str, seed: int):
             torch.from_numpy(lex), n, min_freq)
 
 
-def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fused=False):
-    """K2 (or K1 with ``fused``) against its twin, chunk by chunk, from one
-    state; returns the kernel's state."""
+def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fused=False,
+                    layout=None):
+    """K2 (or K1 with ``fused``, its token bytes in ``layout``) against its
+    twin, chunk by chunk, from one state; returns the kernel's state."""
     base = list(Vocab.base(specials).tokens())
     num = vocab_cap - len(base)
     if fused:
@@ -110,7 +111,7 @@ def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fuse
     for start in range(0, num, chunk):
         kw = dict(chunk_start=start, chunk_size=chunk, num_merges=num, min_frequency=min_freq)
         twin_fn(twin, **kw)
-        kern_fn(kern, **kw)
+        kern_fn(kern, **kw, **(dict(_layout=layout) if fused else {}))
         torch.cuda.synchronize()
         for name in TENSORS:
             assert torch.equal(getattr(kern, name), getattr(twin, name)), (name, start)
@@ -163,6 +164,61 @@ def test_fused_kernel_matches_twin_random_tables(seed):
     _need_cuda()
     kern = _kernel_vs_twin(_random_table(seed), [], 330, 1 + seed % 3, 7, fused=True)
     assert int(kern.scalars[hbm_loop.NUM_DONE]) > 0
+
+
+def _wide_file(tmp_path: Path, lines: int, seed: int) -> Path:
+    """tests/data/large.txt plus ``lines`` lines of 65-300-byte pre-tokens
+    (scripts/wide_lines.py)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "wide_lines", Path(__file__).resolve().parent.parent / "scripts" / "wide_lines.py"
+    )
+    wide = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wide)
+    path = tmp_path / "wide.txt"
+    path.write_text((DATA / "large.txt").read_text(encoding="utf-8") + "\n"
+                    + "\n".join(wide.wide_lines(lines, seed)) + "\n", encoding="utf-8")
+    return path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "vocab_cap,layout,auto_layout",
+    [(320, None, "shared"), (320, "global", "shared"), (1024, None, "global")],
+)
+def test_fused_kernel_matches_twin_wide_words(tmp_path, vocab_cap, layout, auto_layout):
+    """Words past 64 symbols (width 304) through K1's in-place apply, in
+    both token-byte layouts: at vocab 320 the u16 bytes fit the first
+    CTA's shared memory and the global layout is forced; at 1024 they do
+    not fit, and the kernel picks the global one."""
+    _need_cuda()
+    table = WordTable.from_counter(count_pretokens([_wide_file(tmp_path, 200, 2)], SPECIALS))
+    assert table.words.shape[1] == 304
+    byte_width = hbm_driver.byte_width(table.width, list(Vocab.base(SPECIALS).tokens()))
+    assert fused_loop.token_layout(vocab_cap, byte_width) == auto_layout
+    before = table.words.copy()
+    kern = _kernel_vs_twin(table, SPECIALS, vocab_cap, 1, 50, fused=True, layout=layout)
+    long_rows = (before >= 0).sum(axis=1) > 64
+    assert (kern.words.cpu().numpy()[long_rows] != before[long_rows]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_fused_kernel_matches_twin_random_wide_tables(seed):
+    """Tiny alphabets in words of 65-300 symbols: long a == b runs, ties,
+    dedups, in both token-byte layouts."""
+    _need_cuda()
+    rng = np.random.default_rng(100 + seed)
+    alphabet = np.frombuffer(b"aab b", dtype=np.uint8)
+    counter = Counter({b"a" * 299: 3})
+    for _ in range(int(rng.integers(5, 40))):
+        n = int(rng.integers(65, 301))
+        counter[bytes(alphabet[rng.integers(0, len(alphabet), n)].tolist())] += int(rng.integers(1, 6))
+    table = WordTable.from_counter(counter)
+    for layout in fused_loop.TOKEN_LAYOUTS:
+        kern = _kernel_vs_twin(table, [], 330, 1 + seed % 2, 7, fused=True, layout=layout)
+        assert int(kern.scalars[hbm_loop.NUM_DONE]) > 0
 
 
 @pytest.mark.cuda
@@ -490,9 +546,9 @@ def test_kernel_replay_divergence_raises():
 
 @pytest.mark.cuda
 def test_engines_on_cuda_past_the_kernels(tmp_path):
-    """Words past 64 symbols train on the card through the incremental and
-    the bigvocab engines, with no merge kernel launched, to the native
-    loop's merges."""
+    """Words past 64 symbols train on the card through K1 where it admits
+    them, and through the incremental (K1 off) and the bigvocab engines
+    with no merge kernel launched, to the native loop's merges."""
     _need_cuda()
     import importlib.util
 
@@ -504,13 +560,18 @@ def test_engines_on_cuda_past_the_kernels(tmp_path):
     path = tmp_path / "wide.txt"
     path.write_text((DATA / "sample.txt").read_text(encoding="utf-8") + "\n"
                     + "\n".join(wide.wide_lines(60, 1)) + "\n", encoding="utf-8")
-    for vocab_size, route in ((320, "incremental"), (2300, "bigvocab")):
+    for vocab_size, extra, route in (
+        (320, {}, "K1"),
+        (320, dict(use_fused_kernel=False), "incremental"),
+        (2300, {}, "bigvocab"),
+    ):
         kw = dict(vocab_size=vocab_size, min_frequency=1, max_workers=1, special_tokens=[])
         hbm_loop.LAUNCHES["hbm_merge_chunk"] = fused_loop.LAUNCHES["fused_merge_chunk"] = 0
-        trainer = BBPETrainer(BBPETrainerConfig(**kw, device="cuda"))
+        trainer = BBPETrainer(BBPETrainerConfig(**kw, **extra, device="cuda"))
         model = trainer.train([path])
         assert trainer.route == route
-        assert hbm_loop.LAUNCHES["hbm_merge_chunk"] == fused_loop.LAUNCHES["fused_merge_chunk"] == 0
+        assert hbm_loop.LAUNCHES["hbm_merge_chunk"] == 0
+        assert (fused_loop.LAUNCHES["fused_merge_chunk"] > 0) == (route == "K1")
         native = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True)).train([path])
         assert model.merges == native.merges and model.vocab == native.vocab
 

@@ -301,16 +301,23 @@ def test_count_strategy_resolution_matches_jax(wide_corpus):
 
 
 @pytest.mark.parametrize(
-    "vocab_size,route", [(320, "incremental"), (2300, "bigvocab")]
+    "vocab_size,extra,route",
+    [
+        (320, {}, "K1"),
+        (320, dict(use_fused_kernel=False), "incremental"),
+        (2300, {}, "bigvocab"),
+    ],
+    ids=["320-K1", "320-incremental", "2300-bigvocab"],
 )
-def test_trainer_past_the_kernels_matches_jax_and_native(wide_corpus, vocab_size, route):
+def test_trainer_past_the_kernels_matches_jax_and_native(wide_corpus, vocab_size, extra, route):
     """Words past 64 symbols train on the device route (device="cpu") with
-    no NotImplementedError: vocab <= 2048 on the incremental engine, above
-    it on the bigvocab engine, with the merges and vocab of the JAX
-    trainer's engines and of the native loop."""
+    no NotImplementedError: within K1's admission on K1 (as the JAX
+    trainer routes them), else at vocab <= 2048 on the incremental engine
+    and above it on the bigvocab engine, with the merges and vocab of the
+    JAX trainer's engines and of the native loop."""
     path = wide_corpus[0]
     kw = dict(vocab_size=vocab_size, min_frequency=1, max_workers=1, special_tokens=[])
-    trainer = BBPETrainer(BBPETrainerConfig(**kw, device="cpu"))
+    trainer = BBPETrainer(BBPETrainerConfig(**kw, **extra, device="cpu"))
     model = trainer.train([path])
     assert trainer.route == route
     jax = JaxTrainer(JaxConfig(**kw, use_native_loop=False)).train([path])
@@ -322,8 +329,8 @@ def test_trainer_past_the_kernels_matches_jax_and_native(wide_corpus, vocab_size
 def test_trainer_routes_and_forced_kernels(wide_corpus):
     """The JAX trainer's order: K1 for a small admitted problem, K2 with
     ``use_fused_kernel=False``, the engines with ``use_hbm_kernel=False``
-    or past the kernels' limits; a forced kernel past them raises
-    ValueError, K1's naming the ROADMAP item on its width; the matmul
+    or past the kernels' limits; K1 takes words past 64 symbols, forced
+    or not, and a forced K2 past its limits raises ValueError; the matmul
     strategy gives the same merges."""
     kw = dict(vocab_size=300, min_frequency=1, max_workers=1, special_tokens=[], device="cpu")
     narrow = DATA / "sample.txt"
@@ -339,7 +346,13 @@ def test_trainer_routes_and_forced_kernels(wide_corpus):
     assert [r for _, r in routes.values()] == ["K1", "K2", "incremental", "incremental"]
     assert len({tuple(m) for m, _ in routes.values()}) == 1
     wide = wide_corpus[0]
-    with pytest.raises(ValueError, match="item 3: K1's word width"):
-        BBPETrainer(BBPETrainerConfig(**kw, use_fused_kernel=True)).train([wide])
+    forced = BBPETrainer(BBPETrainerConfig(**kw, use_fused_kernel=True))
+    forced_merges = forced.train([wide]).merges
+    assert forced.route == "K1"
+    engine = BBPETrainer(BBPETrainerConfig(**kw, use_fused_kernel=False))
+    assert forced_merges == engine.train([wide]).merges
+    assert engine.route == "incremental"
     with pytest.raises(ValueError, match="use_hbm_kernel=True"):
-        BBPETrainer(BBPETrainerConfig(**kw, use_hbm_kernel=True)).train([wide])
+        BBPETrainer(BBPETrainerConfig(
+            **kw, use_fused_kernel=False, use_hbm_kernel=True,
+        )).train([wide])

@@ -11,6 +11,7 @@ is held against the twin on a card by tests/test_torch_cuda.py.
 
 from __future__ import annotations
 
+import functools
 import random
 from collections import Counter
 
@@ -19,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from yabpe_tpu import BBPETrainer as JaxTrainer
+from yabpe_tpu import BBPETrainerConfig as JaxConfig
 from yabpe_tpu.core.vocab import Vocab as JaxVocab
 from yabpe_tpu.core.wordtable import WordTable as JaxWordTable
 from yabpe_tpu.kernels.fused_loop import fused_merge_chunk as jax_fused_merge_chunk
@@ -26,6 +29,7 @@ from yabpe_tpu.train import fused_driver as jax_driver
 from yabpe_tpu.train.incremental import init_counts as jax_init_counts
 from yabpe_tpu.train.reference_loop import train_merges_oracle as jax_oracle
 from yabpe_tpu.train.state import init_state as jax_init_state
+from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
 from yabpe_tpu_torch.core.vocab import Vocab
 from yabpe_tpu_torch.core.wordtable import WordTable
 from yabpe_tpu_torch.kernels import fused_loop
@@ -164,6 +168,88 @@ def test_run_fused_merge_loop_matches_jax_on_large_txt():
     )
     assert np.array_equal(got, np.asarray(want)[:num])
     assert (got[:, 0] >= 0).all()
+
+
+@pytest.fixture(scope="module")
+def wide_table(tmp_path_factory):
+    """The first 3,000 bytes of tests/data/large.txt plus 30 lines of
+    65-300-byte pre-tokens (scripts/wide_lines.py, seed 2): a JAX word
+    table of 128 rows x 304 symbols, and its file."""
+    from yabpe_tpu.pretok.ingest import count_pretokens
+
+    from .test_torch_engines import _wide_lines
+
+    path = tmp_path_factory.mktemp("fused_wide") / "wide.txt"
+    path.write_bytes(
+        (DATA / "large.txt").read_bytes()[:3000] + b"\n"
+        + "\n".join(_wide_lines(30, 2)).encode("utf-8") + b"\n"
+    )
+    jt = JaxWordTable.from_counter(count_pretokens([path], [], max_workers=1))
+    assert jt.words.shape == (128, 304) and jt.max_len > 64
+    return path, jt
+
+
+def test_twin_matches_jax_kernel_at_width_304(wide_table):
+    """Words past 64 symbols, as the TPU kernel takes them: the twin's
+    state equals the JAX kernel's (interpret mode) after every chunk of 32
+    at vocab 320, the record equals the JAX driver's and the port driver's,
+    and a word longer than 64 symbols is merged."""
+    _, jt = wide_table
+    vocab_size, num, chunk = 320, 64, 32
+    jax_state, jax_freqs = _jax_state(jt, vocab_size, num)
+    port = fused_driver.fused_state_from_numpy(
+        jt.words, jt.freqs, list(Vocab.base([]).tokens()), vocab_size, "cpu",
+        num_merges=num,
+    )
+    before = port.words.clone()
+    _assert_same(port, jax_state, "initial state")
+    for start in range(0, num, chunk):
+        scalars = jax_state[6].at[0, 3].set(start)
+        jax_state = list(jax_fused_merge_chunk(
+            *jax_state[:6], scalars, jax_freqs, vocab_cap=vocab_size,
+            num_merges=num, chunk_size=chunk, min_frequency=1, interpret=True,
+        ))
+        fused_loop.fused_merge_chunk(
+            port, chunk_start=start, chunk_size=chunk, num_merges=num, min_frequency=1,
+        )
+        _assert_same(port, jax_state, f"after the chunk ending at {start + chunk}")
+    assert int(port.scalars[2]) == num
+    long_rows = (before >= 0).sum(dim=1) > 64
+    assert bool((port.words[long_rows] != before[long_rows]).any())
+    want = jax_driver.run_fused_merge_loop(
+        jt, JaxVocab.base([]), vocab_cap=vocab_size, num_merges=num,
+        min_frequency=1, chunk_size=chunk, interpret=True,
+    )
+    got = fused_driver.run_fused_merge_loop(
+        WordTable(jt.words, jt.freqs, jt.num_words, jt.max_len), Vocab.base([]),
+        vocab_cap=vocab_size, num_merges=num, min_frequency=1, chunk_size=chunk,
+        device="cpu",
+    )
+    assert np.array_equal(got, np.asarray(want)[:num])
+    assert np.array_equal(got, port.merges.numpy())
+
+
+def test_trainer_routes_wide_words_to_k1_as_jax_does(wide_table, monkeypatch):
+    """The JAX trainer's route: the wide corpus at vocab 320 fits K1's
+    admission, so the port trains it on K1 (its twin, device="cpu"), with
+    the merges and vocab of the JAX trainer forced onto its K1 (the Pallas
+    kernel interpreted, as on any backend but a TPU) and of the native
+    loop."""
+    path, _ = wide_table
+    kw = dict(vocab_size=320, min_frequency=1, max_workers=1, special_tokens=[])
+    trainer = BBPETrainer(BBPETrainerConfig(**kw, device="cpu"))
+    before = fused_loop.LAUNCHES["fused_merge_chunk"]
+    model = trainer.train([path])
+    assert trainer.route == "K1"
+    assert fused_loop.LAUNCHES["fused_merge_chunk"] == before  # the twin ran
+    monkeypatch.setattr(
+        jax_driver, "run_fused_merge_loop",
+        functools.partial(jax_driver.run_fused_merge_loop, interpret=True),
+    )
+    jax = JaxTrainer(JaxConfig(**kw, use_fused_kernel=True, use_native_loop=False)).train([path])
+    native = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True)).train([path])
+    assert model.merges == jax.merges == native.merges
+    assert model.vocab == jax.vocab == native.vocab
 
 
 def test_fused_applicable_matches_jax():

@@ -6,6 +6,8 @@ bytes on disk.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import os
 import re
 import subprocess
@@ -48,6 +50,11 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "yabpe_tpu_torch.tok.device_encode, yabpe_tpu_torch.dist.sharded, "
         "yabpe_tpu_torch.dist.ingest, yabpe_tpu_torch.dist.speculative, "
         "yabpe_tpu_torch.cli.train_bpe, yabpe_tpu_torch.utils.profiling, tempfile, pathlib\n"
+        "from yabpe_tpu_torch.core import PAD, Vocab, WordTable\n"
+        "from yabpe_tpu_torch.pretok import GPT2_SPLIT_PATTERN, count_pretokens\n"
+        "from yabpe_tpu_torch.io import load_model, save_model\n"
+        "from yabpe_tpu_torch.train import BBPEModel, BBPETrainer, BBPETrainerConfig\n"
+        "from yabpe_tpu_torch.dist import multihost_initialize\n"
         "tok = yabpe_tpu_torch.BBPETokenizer("
         "{b'a': 0, b'b': 1, b' ': 2, b'ab': 3, b' ab': 4}, "
         "[(b'a', b'b'), (b' ', b'ab')], [])\n"
@@ -187,3 +194,100 @@ def test_word_table_from_counter_matches_jax():
     counter = Counter({b"abc": 3, b"x" * 40: 2, b"": 5, b"zero": 0, b"q": 1})
     _same_table(WordTable.from_counter(counter), JaxWordTable.from_counter(counter))
     assert Path(ingest.__file__).parent.parent.name == "yabpe_tpu_torch"
+
+
+@pytest.mark.parametrize("package", ["core", "pretok", "io", "train", "tok", "dist"])
+def test_subpackage_exports_match_jax(package):
+    """Each sub-package exports the JAX package's names (``dist`` all but
+    ``state_partition_specs``, the shard_map layout that has no
+    counterpart), and the patterns' source is the same."""
+    port = importlib.import_module(f"yabpe_tpu_torch.{package}")
+    jax = importlib.import_module(f"yabpe_tpu.{package}")
+    want = set(jax.__all__) - {"state_partition_specs"}
+    assert want <= set(port.__all__)
+    if package != "dist":
+        assert set(port.__all__) == want
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+        if not callable(getattr(jax, name, None)) and name in jax.__all__:
+            assert getattr(port, name) == getattr(jax, name), name
+
+
+def test_config_fields_match_jax():
+    """BBPETrainerConfig has every field of the JAX config, with its
+    default, ``ingest_processes`` and ``count_strategy`` included, plus
+    ``device``."""
+    from yabpe_tpu.train.config import BBPETrainerConfig as JaxConfig
+    from yabpe_tpu_torch.train import BBPETrainerConfig
+
+    port = {f.name: f for f in dataclasses.fields(BBPETrainerConfig)}
+    for f in dataclasses.fields(JaxConfig):
+        assert f.name in port, f.name
+    assert set(port) - {f.name for f in dataclasses.fields(JaxConfig)} == {"device"}
+    ours, theirs = BBPETrainerConfig(), JaxConfig()
+    for name in ("ingest_processes", "count_strategy", "use_fused_kernel", "min_frequency"):
+        assert getattr(ours, name) == getattr(theirs, name), name
+
+
+def test_multihost_initialize_without_a_launcher_is_a_no_op(monkeypatch):
+    import torch.distributed as dist
+
+    from yabpe_tpu.dist.mesh import multihost_initialize as jax_multihost_initialize
+    from yabpe_tpu_torch.dist.mesh import multihost_initialize
+
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "JAX_COORDINATOR_ADDRESS",
+                 "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(name, raising=False)
+    multihost_initialize()
+    jax_multihost_initialize()
+    assert not dist.is_initialized()
+
+
+def test_native_train_host_matches_train_host_raw_and_jax():
+    counter = ingest.count_pretokens([DATA / "large.txt"], SPECIALS)
+    counter[b""] = 4  # dropped, as the JAX function drops it
+    got = native.train_host(counter, 300, 2)
+    blob, lens, counts = ingest.count_pretokens_raw([DATA / "large.txt"], SPECIALS)
+    assert got == native.train_host_raw(blob, lens, counts, 300, 2)
+    assert got == jax_native.train_host(counter, 300, 2)
+    assert len(got) > 100
+
+
+@pytest.mark.parametrize("use_processes", [True, False, None], ids=["processes", "threads", "auto"])
+def test_regex_path_pools_match_jax(use_processes):
+    """The regex path in a pool of two processes or threads (auto: threads
+    for this small file, as in the JAX package) gives the JAX package's
+    counter."""
+    path = DATA / "large.txt"
+    kw = dict(chunk_size_bytes=4096, max_workers=2, align_to_newline=True)
+    got = ingest.count_pretokens_regex([path], SPECIALS, use_processes=use_processes, **kw)
+    assert got == jax_ingest.count_pretokens([path], SPECIALS, **kw)
+
+
+def test_trainer_ingest_processes_on_the_regex_path(monkeypatch):
+    """``ingest_processes=True`` reaches the regex path of the numpy
+    backend (the native library taken away): the same merges as the JAX
+    trainer's."""
+    from yabpe_tpu import BBPETrainer as JaxTrainer
+    from yabpe_tpu import BBPETrainerConfig as JaxConfig
+    from yabpe_tpu_torch.train import BBPETrainer, BBPETrainerConfig
+
+    seen = []
+    regex_count = ingest.count_pretokens_regex
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs["use_processes"])
+        return regex_count(*args, **kwargs)
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(ingest, "count_pretokens_regex", spy)
+    kw = dict(vocab_size=300, min_frequency=1, max_workers=2, chunk_size_bytes=4096,
+              special_tokens=SPECIALS, align_chunks_to_newline=True)
+    model = BBPETrainer(BBPETrainerConfig(**kw, backend="numpy", ingest_processes=True)).train(
+        [DATA / "large.txt"]
+    )
+    assert seen == [True]
+    want = JaxTrainer(JaxConfig(**kw, backend="numpy", ingest_processes=True)).train(
+        [DATA / "large.txt"]
+    )
+    assert model.merges == want.merges and model.vocab == want.vocab
