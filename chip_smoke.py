@@ -170,13 +170,23 @@ package. Phases, none of whose failures is caught:
       equal BBPETrainer.save's for the same config, and the trace must
       exist and not be empty;
 12. GPT-2's 50,000-merge model on the card: the merges derived from
-    tests/fixtures_gpt2/gpt2_vocab.json (ids 256..50255 are the merge
-    ranks: each token, BPE-encoded with the merges before it, splits into
-    its rank's two parts); encode, encode_batch(device=True) and
-    encode_file (host threads, and the device scan) with
-    compute_device="cuda" must give the golden ids of the 11 snippets and
-    the two special-token texts (the golden no_special ids decoded), with
-    and without <|endoftext|>.
+    tests/fixtures_gpt2/gpt2_vocab.json by bench_torch.py's
+    derive_gpt2_merges (ids 256..50255 are the merge ranks: each token,
+    BPE-encoded with the merges before it, splits into its rank's two
+    parts); encode, encode_batch(device=True) and encode_file (host
+    threads, and the device scan) with compute_device="cuda" must give the
+    golden ids of the 11 snippets and the two special-token texts (the
+    golden no_special ids decoded), with and without <|endoftext|>;
+13. the benchmark harness's 5 MB legs through bench_torch.py's own
+    functions, with every kernel's launch count zeroed before and read
+    after: train_real5m (the headline: the realistic fixture at vocab
+    1000 on the default route, which must be K2, against the native
+    loop), train_5m_repeated (TinyStories, which must be K1) and encode_5m
+    (GPT-2's model, encode_batch(device=True) against encode); each
+    device run must equal the native loop or the host encoder, K1 and K2
+    must have launched, and the harness's last line must have bench.py's
+    four keys and a positive value. The 100 MB and 1 GB legs stay in the
+    harness (phases 4 and 6 run 100 MB through K2 already).
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}. K1's and
@@ -588,28 +598,18 @@ def wide_k1_run(base, tmp: Path, card):
     return ms, plain_ms, need, max(err, *(r[3] for r in small.values())), steps, launches
 
 
-def derive_gpt2_merges(vocab: dict[bytes, int]) -> list[tuple[bytes, bytes]]:
-    """GPT-2's merges in rank order from its vocabulary: each token of id
-    256..50255, BPE-encoded with the merges derived so far, splits into
-    exactly two parts, which are that rank's merge."""
-    ranks: dict[tuple[bytes, bytes], int] = {}
-    merges: list[tuple[bytes, bytes]] = []
-    for token, _ in sorted(vocab.items(), key=lambda kv: kv[1])[256:]:
-        if token == SPECIALS[0].encode():
-            continue
-        parts = [bytes([b]) for b in token]
-        while len(parts) > 2:
-            k = min(range(len(parts) - 1),
-                    key=lambda i: ranks.get((parts[i], parts[i + 1]), len(ranks)))
-            check((parts[k], parts[k + 1]) in ranks, f"gpt2: {token!r} has no known pair")
-            parts[k:k + 2] = [parts[k] + parts[k + 1]]
-        check(len(parts) == 2, f"gpt2: {token!r} does not split into two")
-        ranks[(parts[0], parts[1])] = len(merges)
-        merges.append((parts[0], parts[1]))
-    return merges
+def load_bench():
+    """bench_torch.py, the benchmark harness at the repository's root,
+    loaded by path (it runs nothing on import)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("bench_torch", REPO / "bench_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-def gpt2_run(tmp: Path, card) -> None:
+def gpt2_run(tmp: Path, bench, card) -> None:
     """Phase 12: GPT-2's 50,000-merge model on the card: encode,
     encode_batch(device=True) and encode_file (host threads and device
     scan) on the golden snippets and special-token texts, with and
@@ -620,7 +620,7 @@ def gpt2_run(tmp: Path, card) -> None:
     fixtures = REPO / "tests" / "fixtures_gpt2"
     t0 = time.perf_counter()
     vocab = gpt2.load_gpt2_vocab(fixtures / "gpt2_vocab.json")
-    merges = derive_gpt2_merges(vocab)
+    merges = bench.derive_gpt2_merges(vocab)
     derive_s = time.perf_counter() - t0
     check(len(vocab) == 50257 and len(merges) == 50000, "gpt2: not 50,000 merges")
     golden = json.loads((fixtures / "golden_encode" / "gpt2_golden.json").read_text(encoding="utf-8"))
@@ -1187,6 +1187,51 @@ def distributed_run(corpus: Path, native_model, card: str) -> None:
         print(f"phase {label}: {time.perf_counter() - t0} s [{card}]")
 
 
+def bench_line(leg: dict) -> str:
+    """One train leg of the harness: each route's best run."""
+    parts = [leg["leg"]]
+    for name in ("device", "native"):
+        r = leg[name]
+        parts.append(
+            f"{name}[{r['route']}]: {r['seconds']} s (ingest {r['ingest_seconds']} s, "
+            f"merge {r['merge_seconds']} s) = {r['mb_per_s']} MB/s, {r['merges']} merges, "
+            f"peak {r['peak_device_bytes']} B, runs {r['seconds_each']} s"
+        )
+    parts.append(f"device/native {leg['device_over_native']}")
+    return "; ".join(parts)
+
+
+def bench_run(bench, card: str) -> None:
+    """Phase 13: the harness's 5 MB legs on the card through its own
+    functions, each device run equal to the native loop (the harness
+    raises otherwise), with the kernels' launch counts zeroed before and
+    read after."""
+    zero_kernel_launches()
+    real = bench.train_leg(bench.REAL_5M, "train_real5m", card=card)
+    repeated = bench.train_leg(bench.FIVE_M, "train_5m_repeated", card=card)
+    enc = bench.encode_leg(card=card)
+    launches = kernel_launches()
+    print(f"bench launches: {launches}")
+    check(real["device"]["route"] == "K2", f"train_real5m took {real['device']['route']}, not K2")
+    check(repeated["device"]["route"] == "K1",
+          f"train_5m_repeated took {repeated['device']['route']}, not K1")
+    check(launches["hbm_merge_chunk"] > 0, "the bench legs never launched hbm_merge_chunk")
+    check(launches["fused_merge_chunk"] > 0, "the bench legs never launched fused_merge_chunk")
+    for leg in (real, repeated):
+        print(f"{bench_line(leg)} [{card}]")
+    batch, host = enc["batch_device"], enc["host_encode_real"]
+    print(f"encode_5m: device batch {batch['mb_per_s']} MB/s warm ({batch['tokens']} tokens, "
+          f"first call {batch['first_call_seconds']} s, peak {batch['peak_device_bytes']} B); "
+          f"host encode of the realistic text {host['mb_per_s']} MB/s [{card}]")
+    line = bench.result_line(real)
+    print(f"bench line: {json.dumps(line)}")
+    check(set(line) == {"metric", "value", "unit", "vs_baseline"},
+          f"the bench line's keys are {sorted(line)}")
+    check(line["metric"] == "train_bpe_realistic5MB_vocab1000_bytes_per_s" and line["unit"] == "bytes/s",
+          f"the bench line names {line['metric']} in {line['unit']}")
+    check(line["value"] > 0 and line["vs_baseline"] > 0, f"the bench line's numbers: {line}")
+
+
 def main() -> int:
     import torch
 
@@ -1198,6 +1243,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO / "src"))
     sys.path.insert(0, str(REPO / "scripts"))
+    bench = load_bench()
 
     from gen_corpus import generate
 
@@ -1513,8 +1559,13 @@ def main() -> int:
     # ---- 12. GPT-2's 50,000-merge model on the card
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_gpt2_") as tmp:
-        gpt2_run(Path(tmp), card)
+        gpt2_run(Path(tmp), bench, card)
     print(f"phase 12: {time.perf_counter() - t0:.3f} s [{card}]")
+
+    # ---- 13. the benchmark harness's 5 MB legs
+    t0 = time.perf_counter()
+    bench_run(bench, card)
+    print(f"phase 13: {time.perf_counter() - t0:.3f} s [{card}]")
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {
         "kernels": [

@@ -1,1 +1,2 @@
-"""Command-line entry points: ``yabpe-torch-train`` (cli/train_bpe.py)."""
+"""Command-line entry points: ``yabpe-torch-train`` (cli/train_bpe.py) and
+``yabpe-torch-bench`` (cli/bench.py)."""

@@ -13,9 +13,8 @@ the JAX CLI's, with these changes:
 the JAX CLI: the first acts on the ``regex`` ingest path only (the native
 scanner runs on threads), the second on the fallback engines' counts.
 :func:`main_tiny_stories` is the console script
-``yabpe-torch-train-tiny-stories``. The JAX package's ``yabpe-bench``
-(cli/bench.py) runs the JAX harness ``bench.py``; its counterpart waits
-for the port's own bench script.
+``yabpe-torch-train-tiny-stories``. The benchmark's console script,
+``yabpe-torch-bench``, is cli/bench.py.
 """
 
 from __future__ import annotations

@@ -12,9 +12,13 @@ with CUDA 11 and later that needs no relocatable device code, so it
 builds with the same flags and no ``-rdc``.
 
 The library goes into ``_build/kernels/`` beside this package (a directory
-that git ignores), named by a hash of the source and of the shared
-headers (``csrc/*.cuh``), so an edited source is rebuilt and an unchanged
-one is not. A file lock serializes concurrent builds. A failed build
+that git ignores), named by a hash of the source, of the shared headers
+(``csrc/*.cuh``), of ``NVCC_FLAGS`` and of the compiler's ``--version``
+text, so an edited source, a new flag or another toolkit is rebuilt and
+an unchanged tree on the same toolkit is not. This is the counterpart of
+the JAX package's compile cache, whose directory is keyed on the machine
+(yabpe_tpu/utils/jaxsetup.py): a library built by another toolchain is
+never loaded. A file lock serializes concurrent builds. A failed build
 raises :class:`KernelBuildError`; nothing falls back to another path.
 """
 
@@ -40,6 +44,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_version_lock = threading.Lock()
+_nvcc_version: str | None = None
 
 
 class KernelBuildError(RuntimeError):
@@ -57,10 +63,30 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def nvcc_version() -> str:
+    """The compiler's ``--version`` text, read once per process."""
+    global _nvcc_version
+    with _version_lock:
+        if _nvcc_version is None:
+            cmd = [nvcc_path(), "--version"]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                raise KernelBuildError(f"{cmd[0]} could not run: {e}") from e
+            if proc.returncode != 0:
+                raise KernelBuildError(f"{' '.join(cmd)} failed with code {proc.returncode}")
+            _nvcc_version = proc.stdout
+        return _nvcc_version
+
+
+def library_path(name: str, version: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` built by the compiler whose
+    ``--version`` text is ``version`` lives."""
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update(version.encode())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -72,7 +98,7 @@ def build(name: str) -> tuple[Path, str]:
     register and shared-memory lines, empty when nothing was compiled).
     """
     src = CSRC / f"{name}.cu"
-    out = library_path(name)
+    out = library_path(name, nvcc_version())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"{name}.lock", "w") as lock_file:
         fcntl.flock(lock_file, fcntl.LOCK_EX)
@@ -107,4 +133,4 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["KernelBuildError", "build", "load", "library_path", "nvcc_path"]
+__all__ = ["KernelBuildError", "build", "load", "library_path", "nvcc_path", "nvcc_version"]

@@ -17,29 +17,22 @@ repository too). Every comparison is exact.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 
 import pytest
 
+# The benchmark harness's derivation, which chip_smoke.py runs on the card
+# too (the harness imports no JAX, and runs nothing on import).
+from bench_torch import derive_gpt2_merges
 from yabpe_tpu import BBPETokenizer as JaxTokenizer
 from yabpe_tpu_torch import BBPETokenizer
 from yabpe_tpu_torch.io import gpt2
 
-from .common import LOCAL_FIXTURES, REPO
+from .common import LOCAL_FIXTURES
 
 EOT = "<|endoftext|>"
 SPECIAL_KEYS = ("special_trailing", "special_double")
 MODES = ["with_special", "no_special"]
-
-
-def derive_gpt2_merges(vocab: dict[bytes, int]) -> list[tuple[bytes, bytes]]:
-    """chip_smoke.py's derivation, which runs on the card too (that script
-    imports no JAX, and runs nothing on import)."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.derive_gpt2_merges(vocab)
 
 
 @pytest.fixture(scope="module")

@@ -49,7 +49,8 @@ def test_import_leaves_out_jax_and_the_jax_package():
         "yabpe_tpu_torch.train.checkpoint, yabpe_tpu_torch.tok.parallel_encode, "
         "yabpe_tpu_torch.tok.device_encode, yabpe_tpu_torch.dist.sharded, "
         "yabpe_tpu_torch.dist.ingest, yabpe_tpu_torch.dist.speculative, "
-        "yabpe_tpu_torch.cli.train_bpe, yabpe_tpu_torch.utils.profiling, tempfile, pathlib\n"
+        "yabpe_tpu_torch.cli.train_bpe, yabpe_tpu_torch.cli.bench, bench_torch, "
+        "yabpe_tpu_torch.utils.profiling, yabpe_tpu_torch.utils.hostmem, tempfile, pathlib\n"
         "from yabpe_tpu_torch.core import PAD, Vocab, WordTable\n"
         "from yabpe_tpu_torch.pretok import GPT2_SPLIT_PATTERN, count_pretokens\n"
         "from yabpe_tpu_torch.io import load_model, save_model\n"
@@ -83,7 +84,7 @@ def test_import_leaves_out_jax_and_the_jax_package():
 def test_no_jax_imports_in_the_port_sources():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|yabpe_tpu)\b", re.M)
     sources = sorted((REPO / "src" / "yabpe_tpu_torch").rglob("*.py"))
-    sources.append(REPO / "chip_smoke.py")
+    sources += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(sources) > 10
     offenders = [
         f"{p.relative_to(REPO)}: {m.group(0).strip()}"
@@ -291,3 +292,81 @@ def test_trainer_ingest_processes_on_the_regex_path(monkeypatch):
         [DATA / "large.txt"]
     )
     assert model.merges == want.merges and model.vocab == want.vocab
+
+
+WARM_SEQUENCE = (
+    "import json\n"
+    "from {package}.utils import hostmem\n"
+    "print(json.dumps([hostmem.warm_heap(8), hostmem.warm_heap(8), hostmem.warm_heap(16)]))\n"
+)
+
+
+def test_warm_heap_returns_match_jax():
+    """warm_heap(8), warm_heap(8), warm_heap(16) fault 8 MiB, nothing, then
+    the 8 MiB more, as the JAX function does; each package in a process of
+    its own, since both keep the warmed amount per process."""
+    env = {k: v for k, v in os.environ.items() if k != "YABPE_NO_MALLOC_TUNE"}
+    env["PYTHONPATH"] = str(REPO / "src")
+    got = {}
+    for package in ("yabpe_tpu_torch", "yabpe_tpu"):
+        out = subprocess.run(
+            [sys.executable, "-c", WARM_SEQUENCE.format(package=package)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=120, check=True,
+        )
+        got[package] = out.stdout.strip().splitlines()[-1]
+    assert got["yabpe_tpu_torch"] == got["yabpe_tpu"] == "[8388608, 0, 8388608]"
+
+
+def test_warm_heap_off_with_no_malloc_tune(monkeypatch):
+    from yabpe_tpu_torch.utils import hostmem
+
+    monkeypatch.setenv("YABPE_NO_MALLOC_TUNE", "1")
+    assert hostmem.warm_heap(64) == 0
+    assert "warm_heap" in hostmem.__all__
+
+
+def test_library_path_keys_on_flags_and_nvcc_version(monkeypatch):
+    """The library's name changes with NVCC_FLAGS and with the compiler's
+    --version text, and with nothing else held fixed it stays put."""
+    from yabpe_tpu_torch.kernels import _build
+
+    first = _build.library_path("hbm_loop", "release 12.4")
+    assert first == _build.library_path("hbm_loop", "release 12.4")
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("libhbm_loop-")
+    assert _build.library_path("hbm_loop", "release 12.6") != first
+    assert _build.library_path("fused_loop", "release 12.4") != first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
+    assert _build.library_path("hbm_loop", "release 12.4") != first
+    monkeypatch.undo()
+    assert _build.library_path("hbm_loop", "release 12.4") == first
+
+
+def test_build_reuses_a_library_of_the_same_key(monkeypatch, tmp_path):
+    """build() keys on the version that nvcc_version() reads; a library
+    already there under that key is returned without compiling, and
+    another version's key is a different file."""
+    from yabpe_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_version", lambda: "release 12.4")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: pytest.fail("nvcc was run"))
+    lib = _build.library_path("replay_emit", "release 12.4")
+    lib.write_bytes(b"")
+    assert _build.build("replay_emit") == (lib, "")
+    assert not _build.library_path("replay_emit", "release 12.6").exists()
+
+
+def test_nvcc_version_is_read_once(monkeypatch):
+    from yabpe_tpu_torch.kernels import _build
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout="Cuda compilation tools, release 12.4\n")
+
+    monkeypatch.setattr(_build, "_nvcc_version", None)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    assert _build.nvcc_version() == _build.nvcc_version() == "Cuda compilation tools, release 12.4\n"
+    assert calls == [["/cuda/bin/nvcc", "--version"]]
