@@ -5,15 +5,15 @@ by kernel, for the PyTorch/CUDA port (src/yabpe_tpu_torch).
     python3 profile_torch.py [--size-mb 100] [--vocab 32000] [--seed 7]
 
 Builds the corpus of chip_smoke.py's full-width phase (scripts/gen_corpus.py,
-lexicon 200,000) and ingests it as the trainer does (count_pretokens_raw).
-Then two runs of the K2 merge loop:
+lexicon 200,000). Then two runs of the K2 merge loop:
 
-1. host set-up: the trainer's large-vocabulary route step by step
-   (counter_from_raw, WordTable.from_counter, the K1 admission test,
-   hbm_driver.admit, state_from_numpy, the chunks through run_chunks,
-   merges_to_bytes), each timed by the host clock, the device synced
-   after each, so their sum is what ``merge_seconds`` holds;
-2. chunk by chunk on the card through the kernel wrapper, printing for
+1. one ``BBPETrainer(...).train(...)`` under torch.profiler, after an
+   untimed warm-up training: the program's own spans (utils/profiling.py)
+   give the split of ``ingest_seconds`` (scan, fold, each worker) and of
+   ``merge_seconds`` (counter_from_raw, WordTable.from_counter, the state,
+   the chunks, merges_to_bytes; what the route's own choice takes is the
+   rest), and its K2 counters the select's verified rows and time a step;
+2. over the table the trainer builds (ingested again, untimed), chunk by chunk on the card through the kernel wrapper, printing for
    every chunk its time by CUDA events, the select's verify rounds and
    verified rows per step, and the step kernel's time by phase from its
    own global-timer stamps (``HbmState.stats``; the rest of the step is
@@ -73,13 +73,13 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
     from yabpe_tpu_torch.core.vocab import Vocab
     from yabpe_tpu_torch.core.wordtable import WordTable
     from yabpe_tpu_torch.kernels import hbm_loop
     from yabpe_tpu_torch.pretok.ingest import count_pretokens_raw, counter_from_raw
     from yabpe_tpu_torch.train import hbm_driver
-    from yabpe_tpu_torch.train.fused_driver import fused_applicable
-    from yabpe_tpu_torch.train.state import merges_to_bytes
+    from yabpe_tpu_torch.utils import profiling
 
     STATS = {
         "rounds": hbm_loop.STAT_ROUNDS, "verified": hbm_loop.STAT_VERIFIED,
@@ -93,45 +93,52 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
+    config = BBPETrainerConfig(
+        vocab_size=args.vocab, special_tokens=SPECIALS, min_frequency=2,
+        chunk_size_bytes=32 << 20, max_workers=8, align_chunks_to_newline=True,
+        merge_chunk_size=args.chunk,
+    )
     with tempfile.TemporaryDirectory(prefix="yabpe_profile_") as tmp:
         corpus = Path(tmp) / "corpus.txt"
         generate(str(corpus), args.size_mb, lexicon_size=args.lexicon, seed=args.seed)
+
+        # ---- 1. one training under the profiler, split by the program's spans
+        BBPETrainer(config).train([corpus])  # CUDA context and kernel build, untimed
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            trainer = BBPETrainer(config)
+            trainer.train([corpus])
+            torch.cuda.synchronize()
         raw = count_pretokens_raw(
             [corpus], SPECIALS, chunk_size_bytes=32 << 20, max_workers=8,
             align_to_newline=True,
         )
+    spans = profiling.spans()
+    root = max(s["id"] for s in spans if s["name"] == "yabpe.train")
+    mine = [s for s in spans if s["train"] == root]
+    split: dict[str, float] = {}
+    for s in mine:
+        split[s["name"]] = split.get(s["name"], 0.0) + (s["end_ns"] - s["start_ns"]) / 1e9
+    workers = [(s["end_ns"] - s["start_ns"]) / 1e9 for s in mine
+               if s["name"] == "yabpe.ingest.worker"]
+    st = trainer.last_stats
+    route = {k[len("yabpe.route."):]: v for k, v in split.items() if k.startswith("yabpe.route.")}
+    print(f"route {trainer.route}; merge_seconds {st['merge_seconds']} s: " + ", ".join(
+        f"{name} {sec} s" for name, sec in route.items())
+        + f"; the route's choice and the rest {st['merge_seconds'] - sum(route.values())} s [{card}]")
+    print(f"ingest_seconds {st['ingest_seconds']} s: scan {split.get('yabpe.ingest.scan')} s, "
+          f"fold {split.get('yabpe.ingest.fold')} s; {len(workers)} workers "
+          f"{min(workers, default=0)}-{max(workers, default=0)} s [{card}]")
+    k2 = profiling.counters().get(root, {})
+    if k2.get("k2.steps"):
+        print(f"K2: {k2['k2.steps']} live steps, {k2['k2.rows_verified'] / k2['k2.steps']} "
+              f"verified rows/step, select {k2['k2.select_ns'] / k2['k2.steps'] / 1e3} us/step "
+              f"[{card}]")
     base_vocab = Vocab.base(SPECIALS)
     base = list(base_vocab.tokens())
     num = args.vocab - len(base)
-
-    # ---- 1. host set-up inside merge_seconds, as the trainer's K2 route runs it
-    torch.ones(1, device="cuda").add_(1)  # CUDA context outside the timings
-    torch.cuda.synchronize()
-    hbm_loop._library()  # and the kernel's build
-    split: dict[str, float] = {}
-
-    def timed(name, fn, *a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        torch.cuda.synchronize()
-        split[name] = time.perf_counter() - t0
-        return out
-
-    counter = timed("counter_from_raw", counter_from_raw, *raw)
-    table = timed("WordTable.from_counter", WordTable.from_counter, counter)
-    timed("fused_applicable", fused_applicable, int(table.words.shape[0]),
-          int(table.words.shape[1]), args.vocab, max(table.width, 2))
-    token_width = hbm_driver.byte_width(table.width, base)
-    timed("admit", hbm_driver.admit, table, args.vocab, num, token_width, torch.device("cuda"))
-    state = timed("state_from_numpy", hbm_driver.state_from_numpy, table.words, table.freqs,
-                  base, args.vocab, "cuda", num_merges=num)
-    ids = timed("chunks (run_chunks)", hbm_driver.run_chunks, hbm_loop.hbm_merge_chunk, state,
-                num_merges=num, min_frequency=2, chunk_size=args.chunk)
-    timed("merges_to_bytes", merges_to_bytes, ids, base_vocab)
-    total_s = sum(split.values())
-    print("host set-up split of the K2 route's merge_seconds: " + ", ".join(
-        f"{name} {sec} s" for name, sec in split.items()) + f"; sum {total_s} s [{card}]")
-    del state, counter
+    table = WordTable.from_counter(counter_from_raw(*raw))
+    del raw
 
     state = hbm_driver.state_from_numpy(
         table.words, table.freqs, base, args.vocab, "cuda", num_merges=num

@@ -54,7 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ingest-processes", action="store_true")
     p.add_argument(
         "--profile-dir", default=None,
-        help="write a torch.profiler Chrome trace (trace.json) here",
+        help="write a torch.profiler Chrome trace (trace.json) and the "
+        "training's spans and counters (spans.json) here",
     )
     p.add_argument(
         "--checkpoint-dir",

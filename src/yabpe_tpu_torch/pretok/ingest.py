@@ -10,6 +10,11 @@ releases the GIL. The ``regex`` path runs only where the caller allows it
 device route of the trainer never allows it. There, as in the JAX
 package, spans go to a pool of threads or, for corpora past 8 MiB or with
 ``use_processes=True``, of processes (the regex engine holds the GIL).
+
+While the tracer records (utils/profiling.py), the native path's scan
+(``yabpe.ingest.scan``: the main thread waits for the workers), each
+worker (``yabpe.ingest.worker``, with its index) and the fold and export
+(``yabpe.ingest.fold``) are spans.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 from yabpe_tpu_torch import native
 from yabpe_tpu_torch.pretok import chunking
 from yabpe_tpu_torch.pretok.patterns import compile_trainer_pattern
+from yabpe_tpu_torch.utils.profiling import span
 
 
 def _count_span(
@@ -46,24 +52,27 @@ def _count_span(
 def _count_shard_native(
     shard: list[tuple[str, int, int]],
     specials: tuple[str, ...],
+    worker: int = 0,
+    parent: dict | None = None,
 ) -> native.NativeCounter:
     """Accumulate a whole span shard into ONE persistent counter."""
-    counter = native.NativeCounter(specials)
-    for path, start, end in shard:
-        data = chunking.read_span(path, start, end)
-        if native.utf8_invalid_at(data) >= 0:
-            # Raise the reference-parity positioned ValueError.
-            chunking.decode_span_utf8(data, path, start)
-        counter.add(data)
+    with span("yabpe.ingest.worker", parent=parent, worker=worker):
+        counter = native.NativeCounter(specials)
+        for path, start, end in shard:
+            data = chunking.read_span(path, start, end)
+            if native.utf8_invalid_at(data) >= 0:
+                # Raise the reference-parity positioned ValueError.
+                chunking.decode_span_utf8(data, path, start)
+            counter.add(data)
     return counter
 
 
-def _native_root_counter(
+def _native_count_raw(
     tasks: list[tuple[str, int, int]],
     specials: tuple[str, ...],
     max_workers: int,
-) -> native.NativeCounter:
-    """Count all spans natively and fold into one counter.
+) -> tuple[bytes, np.ndarray, np.ndarray]:
+    """Count all spans natively, fold into one counter and export it.
 
     Spans are assigned to workers round-robin, so the exported table order
     is stable for a given worker count; the counts are worker-count
@@ -71,17 +80,25 @@ def _native_root_counter(
     """
     max_workers = min(max_workers, os.cpu_count() or 1, len(tasks))
     if max_workers <= 1:
-        return _count_shard_native(tasks, specials)
-    shards = [tasks[i::max_workers] for i in range(max_workers)]
-    with ThreadPoolExecutor(max_workers=max_workers) as pool:
-        futures = [
-            pool.submit(_count_shard_native, shard, specials) for shard in shards
-        ]
-        parts = [f.result() for f in futures]
-    for part in parts[1:]:
-        parts[0].merge(part)
-        part.close()
-    return parts[0]
+        with span("yabpe.ingest.scan"):
+            parts = [_count_shard_native(tasks, specials)]
+    else:
+        shards = [tasks[i::max_workers] for i in range(max_workers)]
+        with ThreadPoolExecutor(max_workers=max_workers) as pool:
+            with span("yabpe.ingest.scan") as scan:
+                futures = [
+                    pool.submit(_count_shard_native, shard, specials, i, scan)
+                    for i, shard in enumerate(shards)
+                ]
+                parts = [f.result() for f in futures]
+    with span("yabpe.ingest.fold"):
+        for part in parts[1:]:
+            parts[0].merge(part)
+            part.close()
+        try:
+            return parts[0].export()
+        finally:
+            parts[0].close()
 
 
 def _spans(
@@ -127,11 +144,7 @@ def count_pretokens_raw(
     tasks = _spans(files, chunk_size_bytes, align_to_newline)
     if not tasks:
         return b"", np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int64)
-    root = _native_root_counter(tasks, tuple(special_tokens), max_workers)
-    try:
-        return root.export()
-    finally:
-        root.close()
+    return _native_count_raw(tasks, tuple(special_tokens), max_workers)
 
 
 def count_pretokens(

@@ -19,6 +19,7 @@ from yabpe_tpu_torch.core.vocab import Vocab
 from yabpe_tpu_torch.core.wordtable import WordTable
 from yabpe_tpu_torch.kernels.fused_loop import FusedState, fused_merge_chunk
 from yabpe_tpu_torch.train import hbm_driver
+from yabpe_tpu_torch.utils.profiling import span
 
 # Conservative VMEM budget for state + step temporaries (limit is 100 MB).
 _VMEM_BUDGET = 48 * 1024 * 1024
@@ -90,14 +91,15 @@ def run_fused_merge_loop(
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
     base_tokens = list(base_vocab.tokens())
-    hbm_driver.admit(
-        table, max(vocab_cap, len(base_tokens)), num_merges,
-        hbm_driver.byte_width(table.width, base_tokens), device, fused=True,
-    )
-    state = fused_state_from_numpy(
-        table.words, table.freqs, base_tokens, vocab_cap, device,
-        num_merges=num_merges,
-    )
+    with span("yabpe.route.state"):
+        hbm_driver.admit(
+            table, max(vocab_cap, len(base_tokens)), num_merges,
+            hbm_driver.byte_width(table.width, base_tokens), device, fused=True,
+        )
+        state = fused_state_from_numpy(
+            table.words, table.freqs, base_tokens, vocab_cap, device,
+            num_merges=num_merges,
+        )
     return hbm_driver.run_chunks(
         fused_merge_chunk, state, num_merges=num_merges,
         min_frequency=min_frequency, chunk_size=chunk_size, on_chunk=on_chunk,

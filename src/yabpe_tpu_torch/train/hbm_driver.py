@@ -36,12 +36,18 @@ from yabpe_tpu_torch.kernels.hbm_loop import (
     N_SCALARS,
     N_STATS,
     NEXT_ID,
+    NUM_DONE,
+    STAT_NS_BOUND,
+    STAT_NS_VERIFY,
+    STAT_REPLAYED,
+    STAT_VERIFIED,
     STOPPED,
     HbmState,
     hbm_merge_chunk,
     raise_on_divergence,
 )
 from yabpe_tpu_torch.train.state import max_possible_pair_count
+from yabpe_tpu_torch.utils import profiling
 
 #: Token ids travel in 16 bits inside the kernel's selection keys; the
 #: JAX kernel's cap (31 slabs of 2048 columns) is kept, which covers
@@ -223,22 +229,23 @@ def run_hbm_merge_loop(
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but CUDA is not available")
     base_tokens = list(base_vocab.tokens())
-    admit(
-        table, max(vocab_cap, len(base_tokens)), num_merges,
-        byte_width(table.width, base_tokens), device,
-    )
-    state = state_from_numpy(
-        table.words, table.freqs, base_tokens, vocab_cap, device,
-        num_merges=num_merges,
-    )
-    replay = {}
-    if resume is not None:
-        merges_ids, steps_done = resume
-        until = max(0, min(int(steps_done), num_merges))
-        state.merges[:until] = torch.as_tensor(
-            np.asarray(merges_ids[:until], dtype=np.int32), device=device
+    with profiling.span("yabpe.route.state"):
+        admit(
+            table, max(vocab_cap, len(base_tokens)), num_merges,
+            byte_width(table.width, base_tokens), device,
         )
-        replay = dict(replay_until=until)
+        state = state_from_numpy(
+            table.words, table.freqs, base_tokens, vocab_cap, device,
+            num_merges=num_merges,
+        )
+        replay = {}
+        if resume is not None:
+            merges_ids, steps_done = resume
+            until = max(0, min(int(steps_done), num_merges))
+            state.merges[:until] = torch.as_tensor(
+                np.asarray(merges_ids[:until], dtype=np.int32), device=device
+            )
+            replay = dict(replay_until=until)
     return run_chunks(
         hbm_merge_chunk, state, num_merges=num_merges,
         min_frequency=min_frequency, chunk_size=chunk_size, on_chunk=on_chunk,
@@ -253,28 +260,66 @@ def run_chunks(
     """Call ``merge_chunk`` (a kernel wrapper, with ``chunk_kw``) on
     ``state`` chunk by chunk until the merges are done or a step stops,
     with one host sync per chunk (and a copy of the merge record for
-    ``on_chunk``); returns the merge record, [num_merges, 3] int32 ids."""
+    ``on_chunk``); returns the merge record, [num_merges, 3] int32 ids.
+
+    While the tracer is on (utils/profiling.py), each chunk is a span and,
+    for K2 on the card, the chunk's sync also reads ``state.stats`` into
+    the counters ``k2.steps``, ``k2.rows_verified`` and ``k2.select_ns``
+    (:func:`k2_counters`); off, it reads nothing more. The twin leaves
+    ``stats`` alone, so on the CPU there are no such counters."""
     chunk = max(1, min(chunk_size, num_merges))
+    k2 = isinstance(state, HbmState)
+    on_card = k2 and state.stats.is_cuda
+    last = None  # (scalars, stats) at the previous sync, while tracing
     start = 0
-    while start < num_merges:
-        merge_chunk(
-            state,
-            chunk_start=start,
-            chunk_size=chunk,
-            num_merges=num_merges,
-            min_frequency=min_frequency,
-            **chunk_kw,
-        )
-        start += chunk
-        if on_state is not None:
-            on_state(state, min(start, num_merges))
-        scalars = state.scalars.tolist()  # the chunk's one host sync
-        raise_on_divergence(scalars)
-        if on_chunk is not None:
-            on_chunk(state.merges[:num_merges].cpu().numpy(), min(start, num_merges))
-        if scalars[STOPPED]:
-            break
-    return state.merges[:num_merges].cpu().numpy()
+    with profiling.span("yabpe.route.chunks"):
+        if on_card and profiling.enabled():
+            last = state.scalars.tolist(), state.stats.tolist()
+        while start < num_merges:
+            with profiling.span("yabpe.k2.chunk" if k2 else "yabpe.k1.chunk", start=start):
+                merge_chunk(
+                    state,
+                    chunk_start=start,
+                    chunk_size=chunk,
+                    num_merges=num_merges,
+                    min_frequency=min_frequency,
+                    **chunk_kw,
+                )
+                start += chunk
+                if on_state is not None:
+                    on_state(state, min(start, num_merges))
+                scalars = state.scalars.tolist()  # the chunk's one host sync
+                if on_card and profiling.enabled():
+                    now = scalars, state.stats.tolist()
+                    if last is not None:
+                        for name, n in k2_counters(last, now).items():
+                            profiling.count(name, n)
+                    last = now
+                raise_on_divergence(scalars)
+                if on_chunk is not None:
+                    on_chunk(state.merges[:num_merges].cpu().numpy(), min(start, num_merges))
+            if scalars[STOPPED]:
+                break
+        return state.merges[:num_merges].cpu().numpy()
+
+
+def k2_counters(before: tuple[list[int], list[int]],
+                after: tuple[list[int], list[int]]) -> dict[str, int]:
+    """K2's counters over a stretch of steps, from ``(scalars, stats)`` read
+    before and after it: live steps (merges done less replayed steps), the
+    rows the select verified, and the select's nanoseconds (bound passes
+    and verifies). Each ``stats`` slot is an int32 that wraps, so each
+    difference is taken modulo 2^32."""
+    (s0, t0), (s1, t1) = before, after
+
+    def diff(slot: int) -> int:
+        return (t1[slot] - t0[slot]) % 2**32
+
+    return {
+        "k2.steps": s1[NUM_DONE] - s0[NUM_DONE] - diff(STAT_REPLAYED),
+        "k2.rows_verified": diff(STAT_VERIFIED),
+        "k2.select_ns": diff(STAT_NS_BOUND) + diff(STAT_NS_VERIFY),
+    }
 
 
 __all__ = [
@@ -286,6 +331,7 @@ __all__ = [
     "kernel_limits",
     "byte_width",
     "initial_corner_counts",
+    "k2_counters",
     "run_chunks",
     "run_hbm_merge_loop",
     "state_bytes",

@@ -40,6 +40,13 @@ set the default. The device route never falls back to the CPU: no CUDA
 device, a failed build of the native scanner or of a kernel, or a state
 past the device's free memory raises.
 
+While the tracer records (utils/profiling.py), a training is a
+``yabpe.train`` span, with ``yabpe.ingest`` and ``yabpe.merge`` under it
+over the intervals of ``last_stats["ingest_seconds"]`` and
+``["merge_seconds"]``, and the device route's steps under the latter:
+``yabpe.route.counter``, ``.wordtable``, ``.state`` and ``.chunks``
+(train/hbm_driver.py) and ``.decode``.
+
 ``checkpoint_dir`` saves the merge record every ``checkpoint_every_chunks``
 chunks and resumes from it (train/checkpoint.py) on K2 (its replay mode),
 the engines and both sharded loops; a checkpointed run never takes K1,
@@ -63,6 +70,7 @@ from yabpe_tpu_torch.train.config import BBPETrainerConfig
 from yabpe_tpu_torch.train.model import BBPEModel
 from yabpe_tpu_torch.train.reference_loop import train_merges_oracle
 from yabpe_tpu_torch.utils.logging import get_logger
+from yabpe_tpu_torch.utils.profiling import span
 
 _LOG = get_logger(__name__)
 
@@ -86,6 +94,10 @@ class BBPETrainer:
 
     def train(self, files: Sequence[str | Path]) -> BBPEModel:
         """Train a BBPE model from one or more UTF-8 text files."""
+        with span("yabpe.train"):
+            return self._train(files)
+
+    def _train(self, files: Sequence[str | Path]) -> BBPEModel:
         if not files:
             raise ValueError("At least one file must be provided")
         cfg = self.config
@@ -108,21 +120,22 @@ class BBPETrainer:
         )
 
         raw = counter = None
-        t0 = time.perf_counter()
-        if cfg.backend == "numpy":
-            counter = count_pretokens(
-                files, cfg.special_tokens, require_native=False,
-                use_processes=cfg.ingest_processes, **ingest_args
-            )
-        elif process_info()[0] > 1:
-            # each process ingests its share of the files; the tables are
-            # unioned identically on every process (dist/ingest.py)
-            from yabpe_tpu_torch.dist.ingest import count_pretokens_global
+        with span("yabpe.ingest"):
+            t0 = time.perf_counter()
+            if cfg.backend == "numpy":
+                counter = count_pretokens(
+                    files, cfg.special_tokens, require_native=False,
+                    use_processes=cfg.ingest_processes, **ingest_args
+                )
+            elif process_info()[0] > 1:
+                # each process ingests its share of the files; the tables are
+                # unioned identically on every process (dist/ingest.py)
+                from yabpe_tpu_torch.dist.ingest import count_pretokens_global
 
-            raw = count_pretokens_global(files, cfg.special_tokens, **ingest_args)
-        else:
-            raw = count_pretokens_raw(files, cfg.special_tokens, **ingest_args)
-        t_ingest = time.perf_counter() - t0
+                raw = count_pretokens_global(files, cfg.special_tokens, **ingest_args)
+            else:
+                raw = count_pretokens_raw(files, cfg.special_tokens, **ingest_args)
+            t_ingest = time.perf_counter() - t0
 
         if raw is not None:
             blob, lens, counts = raw
@@ -139,35 +152,36 @@ class BBPETrainer:
                 vocab=self._vocab, merges=[], special_tokens=list(cfg.special_tokens)
             )
 
-        t0 = time.perf_counter()
-        if cfg.backend == "numpy":
-            self.route = "oracle"
-            vocab, merges = train_merges_oracle(
-                counter, cfg.special_tokens, cfg.vocab_size, cfg.min_frequency
-            )
-        elif cfg.use_native_loop:
-            from yabpe_tpu_torch import native
-
-            self.route = "native"
-            merges = (
-                native.train_host_raw(
-                    blob, lens, counts, num_merges, cfg.min_frequency
+        with span("yabpe.merge"):
+            t0 = time.perf_counter()
+            if cfg.backend == "numpy":
+                self.route = "oracle"
+                vocab, merges = train_merges_oracle(
+                    counter, cfg.special_tokens, cfg.vocab_size, cfg.min_frequency
                 )
-                if num_merges > 0
-                else []
-            )
-            vocab = Vocab()
-            for tok in base.tokens():
-                vocab.add(tok)
-            for left, right in merges:
-                vocab.add(left + right)
-        else:
-            from yabpe_tpu_torch.pretok.ingest import counter_from_raw
+            elif cfg.use_native_loop:
+                from yabpe_tpu_torch import native
 
-            vocab, merges = self._train_device(
-                counter_from_raw(blob, lens, counts), base
-            )
-        t_merge = time.perf_counter() - t0
+                self.route = "native"
+                merges = (
+                    native.train_host_raw(
+                        blob, lens, counts, num_merges, cfg.min_frequency
+                    )
+                    if num_merges > 0
+                    else []
+                )
+                vocab = Vocab()
+                for tok in base.tokens():
+                    vocab.add(tok)
+                for left, right in merges:
+                    vocab.add(left + right)
+            else:
+                from yabpe_tpu_torch.pretok.ingest import counter_from_raw
+
+                with span("yabpe.route.counter"):
+                    counter = counter_from_raw(blob, lens, counts)
+                vocab, merges = self._train_device(counter, base)
+            t_merge = time.perf_counter() - t0
 
         self.last_stats = {
             "ingest_seconds": t_ingest,
@@ -224,7 +238,8 @@ class BBPETrainer:
                 f"vocab_cap={vocab_cap}; raise max_pair_table_bytes or lower "
                 "vocab_size"
             )
-        table = WordTable.from_counter(counter)
+        with span("yabpe.route.wordtable"):
+            table = WordTable.from_counter(counter)
         if (cfg.data_shards or 1) > 1:
             merges_ids = self._run_sharded(table, base, vocab_cap, num_merges, device)
         else:
@@ -232,7 +247,8 @@ class BBPETrainer:
             merges_ids = self._run_single_device(
                 table, base, vocab_cap, num_merges, device, resume, saver
             )
-        return train_state.merges_to_bytes(merges_ids, base)
+        with span("yabpe.route.decode"):
+            return train_state.merges_to_bytes(merges_ids, base)
 
     def _run_sharded(
         self, table: WordTable, base: Vocab, vocab_cap: int, num_merges: int, device,
