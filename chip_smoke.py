@@ -23,7 +23,10 @@ package. Phases, none of whose failures is caught:
 4. K2 at full width: a 100 MB corpus from scripts/gen_corpus.py (lexicon
    200,000, seed 7) at vocab 32,000, the configuration of bench.py's
    bench_train_100m_hbm:
-   a. K2 against its twin again, for the first chunk at these shapes,
+   a. the word table by WordTable.from_raw and by from_counter(
+      counter_from_raw(...)), each timed on the host: they must be
+      equal; then K2 against its twin again, for the first chunk at
+      these shapes,
       timed by CUDA events, with the bytes the chunk needs at least, the
       us per step and the verify rounds per step;
    b. the large-vocabulary main path: BBPETrainer(...).train(files) on
@@ -567,11 +570,11 @@ def wide_k1_run(base, tmp: Path, card):
 
     from yabpe_tpu_torch.core.wordtable import WordTable
     from yabpe_tpu_torch.kernels import fused_loop
-    from yabpe_tpu_torch.pretok.ingest import count_pretokens
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens_raw
 
     path = tmp / "wide_large_seed0.txt"
     path.write_text(wide_text(REPO / "tests" / "data" / "large.txt", 2000, 0), encoding="utf-8")
-    table = WordTable.from_counter(count_pretokens([path], SPECIALS))
+    table = WordTable.from_raw(*count_pretokens_raw([path], SPECIALS))
     check(table.words.shape == (1024, 304), f"the wide table is {table.words.shape}, not 1024 x 304")
     check(fused_loop.token_layout(1024, 304) == "global", "the token bytes at V=1024 fit shared memory")
     check(fused_loop.token_layout(320, 304) == "shared", "the token bytes at V=320 do not fit")
@@ -1245,6 +1248,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "scripts"))
     bench = load_bench()
 
+    import numpy as np
     from gen_corpus import generate
 
     from yabpe_tpu_torch import BBPETokenizer, BBPETrainer, BBPETrainerConfig, native
@@ -1252,7 +1256,7 @@ def main() -> int:
     from yabpe_tpu_torch.core.wordtable import WordTable
     from yabpe_tpu_torch.io.native import load_model
     from yabpe_tpu_torch.kernels import _build, fused_loop, hbm_loop, replay_emit
-    from yabpe_tpu_torch.pretok.ingest import count_pretokens
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens_raw, counter_from_raw
     from yabpe_tpu_torch.train import checkpoint as ckpt
 
     t_all = time.perf_counter()
@@ -1286,7 +1290,7 @@ def main() -> int:
 
     # ---- 3. kernel against twin, 5 MB realistic fixture at vocab 4096
     fixture = REPO / "tests" / "fixtures_gpt2" / "bench_5M_realistic.txt"
-    small = WordTable.from_counter(count_pretokens([fixture], SPECIALS, **ingest))
+    small = WordTable.from_raw(*count_pretokens_raw([fixture], SPECIALS, **ingest))
     small_merges = kernel_vs_twin("kernel_vs_twin_5M_v4096", small, base, 4096, 2, card)[-1]
 
     # the 100 MB corpus and its word table serve phases 4 and 8
@@ -1299,10 +1303,19 @@ def main() -> int:
         print(f"corpus: {corpus.stat().st_size} bytes in {time.perf_counter() - t0:.3f} s (host)")
 
         # ---- 4a. kernel against twin at the main path's shapes
+        raw = count_pretokens_raw([corpus], SPECIALS, **ingest)
         t0 = time.perf_counter()
-        full = WordTable.from_counter(count_pretokens([corpus], SPECIALS, **ingest))
-        print(f"word table: {full.num_words} words, width {full.width}, "
-              f"{time.perf_counter() - t0:.3f} s (host)")
+        full = WordTable.from_raw(*raw)
+        t_raw = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        old = WordTable.from_counter(counter_from_raw(*raw))
+        t_old = time.perf_counter() - t0
+        check(np.array_equal(full.words, old.words) and np.array_equal(full.freqs, old.freqs)
+              and (full.num_words, full.max_len) == (old.num_words, old.max_len),
+              "WordTable.from_raw differs from from_counter(counter_from_raw(...))")
+        del old
+        print(f"word table: {full.num_words} words, width {full.width}, from_raw "
+              f"{t_raw:.3f} s, from_counter(counter_from_raw(...)) {t_old:.3f} s, equal (host)")
         ms, plain_ms, need, err, k2_steps, k2_rounds, _ = kernel_vs_twin(
             "kernel_vs_twin_100M_v32000", full, base, 32000, 2, card
         )
@@ -1356,11 +1369,11 @@ def main() -> int:
           f"({1e3 * bound_ms / k2_steps} us/step) [{card}]")
 
     # ---- 5. K1 against its twin, chunk by chunk
-    large = WordTable.from_counter(count_pretokens([REPO / "tests" / "data" / "large.txt"], SPECIALS))
+    large = WordTable.from_raw(*count_pretokens_raw([REPO / "tests" / "data" / "large.txt"], SPECIALS))
     k1_first = k1_first_launch(large, base, 1024, 2, card)
     fused_vs_twin("fused_vs_twin_large_v1024", large, base, 1024, 2, 200, card)
     t0 = time.perf_counter()
-    tiny = WordTable.from_counter(count_pretokens([TINYSTORIES], SPECIALS, max_workers=1))
+    tiny = WordTable.from_raw(*count_pretokens_raw([TINYSTORIES], SPECIALS, max_workers=1))
     print(f"tinystories word table: {tiny.num_words} words, width {tiny.width}, "
           f"{time.perf_counter() - t0:.3f} s (host)")
     k1_ms, k1_plain_ms, k1_need, k1_err, k1_old_ms, k1_steps = fused_vs_twin(

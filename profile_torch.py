@@ -10,8 +10,8 @@ lexicon 200,000). Then two runs of the K2 merge loop:
 1. one ``BBPETrainer(...).train(...)`` under torch.profiler, after an
    untimed warm-up training: the program's own spans (utils/profiling.py)
    give the split of ``ingest_seconds`` (scan, fold, each worker) and of
-   ``merge_seconds`` (counter_from_raw, WordTable.from_counter, the state,
-   the chunks, merges_to_bytes; what the route's own choice takes is the
+   ``merge_seconds`` (WordTable.from_raw, the state, the chunks,
+   merges_to_bytes; what the route's own choice takes is the
    rest), and its K2 counters the select's verified rows and time a step;
 2. over the table the trainer builds (ingested again, untimed), chunk by chunk on the card through the kernel wrapper, printing for
    every chunk its time by CUDA events, the select's verify rounds and
@@ -77,7 +77,7 @@ def main() -> int:
     from yabpe_tpu_torch.core.vocab import Vocab
     from yabpe_tpu_torch.core.wordtable import WordTable
     from yabpe_tpu_torch.kernels import hbm_loop
-    from yabpe_tpu_torch.pretok.ingest import count_pretokens_raw, counter_from_raw
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens_raw
     from yabpe_tpu_torch.train import hbm_driver
     from yabpe_tpu_torch.utils import profiling
 
@@ -137,7 +137,7 @@ def main() -> int:
     base_vocab = Vocab.base(SPECIALS)
     base = list(base_vocab.tokens())
     num = args.vocab - len(base)
-    table = WordTable.from_counter(counter_from_raw(*raw))
+    table = WordTable.from_raw(*raw)
     del raw
 
     state = hbm_driver.state_from_numpy(

@@ -44,8 +44,9 @@ While the tracer records (utils/profiling.py), a training is a
 ``yabpe.train`` span, with ``yabpe.ingest`` and ``yabpe.merge`` under it
 over the intervals of ``last_stats["ingest_seconds"]`` and
 ``["merge_seconds"]``, and the device route's steps under the latter:
-``yabpe.route.counter``, ``.wordtable``, ``.state`` and ``.chunks``
-(train/hbm_driver.py) and ``.decode``.
+``yabpe.route.wordtable`` (the padded table built from the scanner's raw
+export, core/wordtable.py), ``.state`` and ``.chunks`` (train/hbm_driver.py)
+and ``.decode``.
 
 ``checkpoint_dir`` saves the merge record every ``checkpoint_every_chunks``
 chunks and resumes from it (train/checkpoint.py) on K2 (its replay mode),
@@ -176,11 +177,7 @@ class BBPETrainer:
                 for left, right in merges:
                     vocab.add(left + right)
             else:
-                from yabpe_tpu_torch.pretok.ingest import counter_from_raw
-
-                with span("yabpe.route.counter"):
-                    counter = counter_from_raw(blob, lens, counts)
-                vocab, merges = self._train_device(counter, base)
+                vocab, merges = self._train_device(raw, base)
             t_merge = time.perf_counter() - t0
 
         self.last_stats = {
@@ -213,8 +210,9 @@ class BBPETrainer:
             raise ValueError(f"unknown backend {cfg.backend!r}")
 
     def _train_device(
-        self, counter, base: Vocab
+        self, raw: tuple[bytes, np.ndarray, np.ndarray], base: Vocab
     ) -> tuple[Vocab, list[tuple[bytes, bytes]]]:
+        """The device route over the raw word export (blob, lens, counts)."""
         import torch
 
         from yabpe_tpu_torch.train import state as train_state
@@ -239,7 +237,7 @@ class BBPETrainer:
                 "vocab_size"
             )
         with span("yabpe.route.wordtable"):
-            table = WordTable.from_counter(counter)
+            table = WordTable.from_raw(*raw)
         if (cfg.data_shards or 1) > 1:
             merges_ids = self._run_sharded(table, base, vocab_cap, num_merges, device)
         else:

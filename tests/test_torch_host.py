@@ -197,6 +197,99 @@ def test_word_table_from_counter_matches_jax():
     assert Path(ingest.__file__).parent.parent.name == "yabpe_tpu_torch"
 
 
+def _raw(words, counts):
+    lens = np.array([len(w) for w in words], dtype=np.int32)
+    return b"".join(words), lens, np.array(counts, dtype=np.int64)
+
+
+def _same_as_counter_route(raw, **kw) -> None:
+    """from_raw equals from_counter over counter_from_raw, and the JAX
+    package's from_counter over the same Counter."""
+    got = WordTable.from_raw(*raw, **kw)
+    counter = ingest.counter_from_raw(*raw)
+    _same_table(got, WordTable.from_counter(counter, **kw))
+    _same_table(got, JaxWordTable.from_counter(counter, **kw))
+    assert got.words.dtype == np.int32 and got.freqs.dtype == np.int64
+
+
+@pytest.mark.parametrize(
+    "name", DATA_FILES + ["bench_5M_realistic", "tinystories_sample_5M"]
+)
+def test_word_table_from_raw_on_native_exports(name, request):
+    if name == "tinystories_sample_5M":
+        path = request.getfixturevalue("tinystories_5m")
+    elif name == "bench_5M_realistic":
+        path = LOCAL_FIXTURES / f"{name}.txt"
+    else:
+        path = DATA / f"{name}.txt"
+    _same_as_counter_route(ingest.count_pretokens_raw([path], SPECIALS, max_workers=4))
+
+
+def _unique_words(n: int) -> list[bytes]:
+    return [i.to_bytes(3, "big").lstrip(b"\0") or b"\0" for i in range(n)][::-1]
+
+
+#: Hand-made raw exports: (words, counts, from_raw's keywords).
+RAW_CASES = {
+    "nul_and_prefix_chains": (
+        [b"a\0", b"ab", b"a", b"\0", b"a\0\0", b"\0\0", b"b", b"a\0b"],
+        [1, 2, 3, 4, 5, 6, 7, 8], {},
+    ),
+    "unsigned_bytes": (
+        [b"\x80", b"\xff", b"\x7f", b"a\xff", b"a\x80\0", b"\xff\0", b"a\x01"],
+        [1, 1, 2, 3, 5, 8, 13], {},
+    ),
+    "past_8_64_200_bytes": (
+        [b"x" * 8, b"x" * 9, b"x" * 8 + b"\0", b"x" * 64 + b"y", b"x" * 65, b"x" * 201,
+         b"x" * 200, b"p" * 100 + b"b", b"p" * 100 + b"a", b"p" * 100, b"p" * 99 + b"\xff"],
+        list(range(1, 12)), {},
+    ),
+    "zero_negative_and_empty_dropped": (
+        [b"", b"keep", b"zero", b"neg", b"also"], [5, 1, 0, -3, 2], {},
+    ),
+    "counts_past_2_31": ([b"ab", b"abc", b"b"], [2**31, 2**40 + 7, 2**31 - 1], {}),
+    "rows_2048": (_unique_words(2048), list(range(1, 2049)), {}),
+    "rows_2049": (_unique_words(2049), list(range(1, 2050)), {}),
+    "empty_export": ([], [], {}),
+    "only_dropped_words": ([b"", b"z"], [3, 0], {}),
+    "width_given": ([b"abc", b"a" * 20], [1, 2], {"width": 20}),
+    "width_multiple": ([b"abc", b"a" * 20], [1, 2], {"width_multiple": 8}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RAW_CASES))
+def test_word_table_from_raw_hand_made(case):
+    words, counts, kw = RAW_CASES[case]
+    _same_as_counter_route(_raw(words, counts), **kw)
+
+
+def test_word_table_from_raw_rows_and_width():
+    """The bucketing edge and the widest case, spelled out."""
+    assert WordTable.from_raw(*_raw(*RAW_CASES["rows_2048"][:2])).words.shape == (2048, 16)
+    assert WordTable.from_raw(*_raw(*RAW_CASES["rows_2049"][:2])).words.shape == (3072, 16)
+    wide = WordTable.from_raw(*_raw(*RAW_CASES["past_8_64_200_bytes"][:2]))
+    assert (wide.width, wide.max_len, wide.num_words) == (208, 201, 11)
+    assert WordTable.from_raw(b"", np.zeros(0, np.int32), np.zeros(0, np.int64)).words.shape == (64, 16)
+
+
+@pytest.mark.parametrize(
+    "raw,kw,match",
+    [
+        pytest.param(_raw([b"abcdef", b"a"], [1, 1]), {"width": 5}, "width=5",
+                     id="width_below_max_len"),
+        pytest.param(_raw([b"ab", b"c", b"ab"], [1, 2, 3]), {}, "given twice",
+                     id="duplicated_word"),
+        pytest.param(_raw([b"y" * 70, b"x", b"y" * 70], [1, 2, 3]), {}, "given twice",
+                     id="duplicated_long_word"),
+        pytest.param((b"abc", np.array([2, 2], np.int32), np.array([1, 1], np.int64)), {},
+                     "blob holds 3", id="lengths_past_the_blob"),
+    ],
+)
+def test_word_table_from_raw_rejects(raw, kw, match):
+    with pytest.raises(ValueError, match=match):
+        WordTable.from_raw(*raw, **kw)
+
+
 @pytest.mark.parametrize("package", ["core", "pretok", "io", "train", "tok", "dist"])
 def test_subpackage_exports_match_jax(package):
     """Each sub-package exports the JAX package's names (``dist`` all but

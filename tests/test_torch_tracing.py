@@ -39,14 +39,13 @@ TREE = {
     "yabpe.ingest.worker": "yabpe.ingest.scan",
     "yabpe.ingest.fold": "yabpe.ingest",
     "yabpe.merge": "yabpe.train",
-    "yabpe.route.counter": "yabpe.merge",
     "yabpe.route.wordtable": "yabpe.merge",
     "yabpe.route.state": "yabpe.merge",
     "yabpe.route.chunks": "yabpe.merge",
     "yabpe.k2.chunk": "yabpe.route.chunks",
     "yabpe.route.decode": "yabpe.merge",
 }
-ROUTE = ("counter", "wordtable", "state", "chunks", "decode")
+ROUTE = ("wordtable", "state", "chunks", "decode")
 
 
 def _config(device: str = "cpu") -> BBPETrainerConfig:

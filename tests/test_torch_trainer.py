@@ -104,6 +104,40 @@ def test_routes_agree(route):
     assert run_train_bpe(path, 420, SPECIALS, **kw, **route) == base
 
 
+@pytest.mark.parametrize(
+    "route,overrides",
+    [
+        ("K2", dict(use_fused_kernel=False)),
+        ("K1", dict(use_fused_kernel=True)),
+        ("oracle", dict(backend="numpy")),
+    ],
+    ids=["K2", "K1", "numpy"],
+)
+def test_device_route_builds_no_counter(monkeypatch, route, overrides):
+    """The device route builds its word table from the scanner's raw
+    export, with the native loop's merges; only the numpy oracle turns the
+    export into a Counter."""
+    from yabpe_tpu_torch.pretok import ingest
+
+    kw = dict(vocab_size=420, min_frequency=2, max_workers=1, special_tokens=SPECIALS)
+    want = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True)).train([DATA / "large.txt"])
+    calls, orig = [], ingest.counter_from_raw
+
+    def counter_from_raw(*raw):
+        if route != "oracle":
+            raise AssertionError("the device route built a Counter")
+        calls.append(len(raw[1]))
+        return orig(*raw)
+
+    monkeypatch.setattr(ingest, "counter_from_raw", counter_from_raw)
+    trainer = BBPETrainer(BBPETrainerConfig(**kw, device="cpu", **overrides))
+    got = trainer.train([DATA / "large.txt"])
+    assert trainer.route == route
+    assert got.merges == want.merges and got.vocab == want.vocab
+    assert len(got.merges) == 420 - 257
+    assert bool(calls) == (route == "oracle")
+
+
 def test_forced_fused_kernel_past_its_admission_raises():
     with pytest.raises(ValueError, match="use_fused_kernel=True"):
         run_train_bpe(DATA / "large.txt", 4096, SPECIALS, use_fused_kernel=True)
