@@ -189,7 +189,17 @@ package. Phases, none of whose failures is caught:
     device run must equal the native loop or the host encoder, K1 and K2
     must have launched, and the harness's last line must have bench.py's
     four keys and a positive value. The 100 MB and 1 GB legs stay in the
-    harness (phases 4 and 6 run 100 MB through K2 already).
+    harness (phases 4 and 6 run 100 MB through K2 already);
+14. DeepSeek LLM's 100k tokenizer through K2: the benchmark's
+    configuration perfbench/configs/deepseek-llm-100k.json (vocab 100,001,
+    one special, min_frequency 1; 100 MiB of perfbench/corpus.py's text
+    from a fixed seed) trained once by BBPETrainer(...).train(files) with
+    the library's defaults otherwise: the route must be K2 with K2
+    launched, the peak device memory must hold the 40.0 GB [V, V] table,
+    and the merges and vocab must equal the plain reference's
+    (perfbench/reference/train.py) exactly. `python3 -c "import
+    chip_smoke; chip_smoke.deepseek_100k_run(chip_smoke.card_line())"`
+    runs this phase alone.
 
 Every number printed is from this run on this card; the last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}. K1's and
@@ -1235,6 +1245,50 @@ def bench_run(bench, card: str) -> None:
     check(line["value"] > 0 and line["vs_baseline"] > 0, f"the bench line's numbers: {line}")
 
 
+def deepseek_100k_run(card: str) -> None:
+    """Phase 14: the benchmark's 100k configuration trained once on the
+    default route, which must be K2, against the plain reference."""
+    import torch
+
+    sys.path.insert(0, str(REPO / "src"))
+    sys.path.insert(0, str(REPO / "perfbench"))
+    from corpus import generate as bench_corpus
+    from reference import pretok as ref_pretok
+    from reference import train as ref_train
+
+    from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+    from yabpe_tpu_torch.kernels import hbm_loop
+
+    config = json.loads((REPO / "perfbench" / "configs" / "deepseek-llm-100k.json").read_text())
+    kw = config["trainer"]
+    with tempfile.TemporaryDirectory(prefix="yabpe_chip_smoke_100k_") as tmp:
+        files = bench_corpus(tmp, 2**31 + 19, config["corpus"])
+        hbm_loop.LAUNCHES["hbm_merge_chunk"] = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = BBPETrainer(BBPETrainerConfig(**kw))
+        model = trainer.train(files)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        st = trainer.last_stats
+        print(f"100k: route {trainer.route}, {len(model.merges)} merges in {seconds:.3f} s "
+              f"(ingest {st['ingest_seconds']:.3f} s, merge {st['merge_seconds']:.3f} s), "
+              f"K2 calls {hbm_loop.LAUNCHES['hbm_merge_chunk']}, peak {peak} B [{card}]")
+        check(trainer.route == "K2", f"the 100k training took {trainer.route}, not K2")
+        check(hbm_loop.LAUNCHES["hbm_merge_chunk"] > 0, "the 100k training never launched K2")
+        v = kw["vocab_size"]
+        check(peak >= 4 * v * v, f"peak {peak} B holds no [{v}, {v}] int32 table")
+        t0 = time.perf_counter()
+        counts = ref_pretok.count_words(files, kw["special_tokens"], 8 * 1024 * 1024)
+        want_vocab, want_merges = ref_train.train_bpe(
+            counts, kw["special_tokens"], v, kw["min_frequency"])
+        print(f"100k: plain reference {time.perf_counter() - t0:.3f} s (host), "
+              f"{len(counts)} unique words")
+        check(model.merges == want_merges, "the 100k merges differ from the plain reference's")
+        check(model.vocab == want_vocab, "the 100k vocab differs from the plain reference's")
+
+
 def main() -> int:
     import torch
 
@@ -1579,6 +1633,11 @@ def main() -> int:
     t0 = time.perf_counter()
     bench_run(bench, card)
     print(f"phase 13: {time.perf_counter() - t0:.3f} s [{card}]")
+
+    # ---- 14. DeepSeek LLM's 100k tokenizer through K2
+    t0 = time.perf_counter()
+    deepseek_100k_run(card)
+    print(f"phase 14: {time.perf_counter() - t0:.3f} s [{card}]")
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     record = {
         "kernels": [

@@ -61,25 +61,31 @@
 // The select. CTA r owns a stripe of the live rows [0, next_id) (a
 // multiple of 4 rows, read with 16-byte loads). A round:
 //   - bound pass: each CTA finds the top two bound keys of its stripe,
-//     key = pack(row_max, lex_rank, row), and keeps the stripe's keys in
-//     shared memory for the step's later rounds;
+//     key = pack_row_key(row_max, lex_rank, the row's slot in the stripe)
+//     (select_keys.cuh), and keeps the stripe's keys in shared memory for
+//     the step's later rounds;
 //   - verify: each CTA whose stripe top beats the best exact key found so
 //     far reads that count row over the live columns [0, next_id) in
 //     16-byte loads and takes its max count (a block max); then lex_rank
 //     is read only at the columns that hold the max, never in full, and a
 //     second block max gives the column. Up to 16 rows are verified per
 //     round, one per SM, in parallel;
-//   - acceptance: the best verified exact key E = pack(exact max,
-//     lex_rank, row) is taken when E >= every bound key of a row not
+//   - acceptance: the best verified exact key E = pack_row_key(exact max,
+//     lex_rank, slot) is taken when E >= every bound key of a row not
 //     verified in the round (the second key of a verified stripe, the top
-//     key of any other stripe); else another round runs.
+//     key of any other stripe); else another round runs. E's row is its
+//     stripe's first row + its slot: the stripe travels with E across the
+//     cluster as the lane that read it.
 // Exactness rule. row_max[r] >= max(counts[r]) holds for every row after
 // every step: bounds only go up (atomicMax in the apply's TableSink), and
 // a verified row's bound is tightened to its exact max. So an E that
 // beats every unverified bound beats every row's exact key, and the row
 // it names is the twin's: the highest count, ties to the greatest lex
 // rank; its column is the greatest lex rank among the columns equal to
-// that count. Ids travel in the key's low 16 bits, so V <= 0xFFFF.
+// that count. A row key holds the row's slot, not its id, and the
+// column's pick packs (lex rank + 1, column) in 32 bits each, so ids and
+// lex ranks reach kRowKeyMaxVocab = 2^17 (select_keys.cuh) with counts of
+// 31 bits.
 // kernels/hbm_loop.py::cluster_select_reference is this round structure
 // in torch, and yabpe_hbm_select runs this kernel's select alone, so the
 // rounds and the tightened row_max are held to it.
@@ -121,11 +127,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 using yabpe::kFullMask;
-using yabpe::key_count;
-using yabpe::key_id;
 using yabpe::kMaxWidth;
+using yabpe::kRowKeyMaxVocab;
 using yabpe::max_u64;
-using yabpe::pack_key;
+using yabpe::pack_row_key;
+using yabpe::row_key_count;
+using yabpe::row_key_slot;
+using yabpe::row_key_with_count;
 using yabpe::stripe_rows;
 using yabpe::top2_add;
 using yabpe::top2_merge;
@@ -276,13 +284,14 @@ __device__ __forceinline__ void for_my_columns(const int* row, int n, F&& f) {
   for (int c = head + 4 * n4 + tid; c < n; c += T) f(c, row[c]);
 }
 
-// The exact key of count row `row` over its live columns [0, n): pack(max
-// count, greatest lex rank among the columns equal to it, that column);
-// 0 for a row without a count. Two passes: the max, with no lex_rank
-// read, then lex_rank only at the columns that hold it (one load where a
-// thread saw the max once, a re-read of its columns, from L1, on a tie).
-__device__ u64 verify_row(const int* row, const int* lex_rank, int n,
-                          u64* red) {
+// The exact max count of count row `row` over its live columns [0, n), 0
+// for a row without a count; *col_out gets the column with the greatest
+// lex rank among those equal to it (0 for none). Two passes: the max, with
+// no lex_rank read, then lex_rank only at the columns that hold it (one
+// load where a thread saw the max once, a re-read of its columns, from
+// L1, on a tie), and a block max over (lex rank + 1, column).
+__device__ int verify_row(const int* row, const int* lex_rank, int n,
+                          u64* red, int* col_out) {
   int m = -1, col = 0, ties = 0;
   for_my_columns(row, n, [&](int c, int v) {
     if (v > m) {
@@ -293,9 +302,10 @@ __device__ u64 verify_row(const int* row, const int* lex_rank, int n,
       ++ties;
     }
   });
-  const int best =
-      key_count(block_max(m > 0 ? pack_key(m, -1, 0) : 0ull, red));
-  if (best <= 0) return 0ull;
+  const int best = static_cast<int>(
+      block_max(static_cast<u64>(static_cast<unsigned>(max(m, 0))), red));
+  *col_out = 0;
+  if (best <= 0) return 0;
   int l = -1;
   if (m == best) {
     if (ties == 1) {
@@ -312,7 +322,12 @@ __device__ u64 verify_row(const int* row, const int* lex_rank, int n,
       });
     }
   }
-  return block_max(l < 0 ? 0ull : pack_key(best, l, col), red);
+  const u64 pick = block_max(
+      l < 0 ? 0ull
+            : (static_cast<u64>(l + 1) << 32) | static_cast<unsigned>(col),
+      red);
+  *col_out = static_cast<int>(pick & 0xFFFFFFFFull);
+  return best;
 }
 
 // Lexicographic order of a token row (int4s, its first one `v` already
@@ -368,7 +383,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   // Every thread of the cluster takes the same decisions from the same
   // data, so control flow, and every cluster barrier, is uniform.
   u64 best = 0;  // the best exact key verified so far
-  int best_col = 0, rounds = 0, verified = 0;
+  int best_row = 0, best_col = 0, rounds = 0, verified = 0;
   bool stop = false;
   const bool replay = step < replay_until;
   int a = 0, b = 0;
@@ -389,9 +404,9 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         const int n4 = len >> 2;
         for (int j = tid; j < n4; j += T) {
           const int4 m = rm[j], l = lx[j];
-          const int r = lo + 4 * j;
-          const u64 k0 = pack_key(m.x, l.x, r), k1 = pack_key(m.y, l.y, r + 1);
-          const u64 k2 = pack_key(m.z, l.z, r + 2), k3 = pack_key(m.w, l.w, r + 3);
+          const int s = 4 * j;
+          const u64 k0 = pack_row_key(m.x, l.x, s), k1 = pack_row_key(m.y, l.y, s + 1);
+          const u64 k2 = pack_row_key(m.z, l.z, s + 2), k3 = pack_row_key(m.w, l.w, s + 3);
           keys[4 * j] = k0;
           keys[4 * j + 1] = k1;
           keys[4 * j + 2] = k2;
@@ -402,7 +417,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
           top2_add(t1, t2, k3);
         }
         for (int i = 4 * n4 + tid; i < len; i += T) {
-          const u64 k = pack_key(row_max[lo + i], lex_rank[lo + i], lo + i);
+          const u64 k = pack_row_key(row_max[lo + i], lex_rank[lo + i], i);
           keys[i] = k;
           top2_add(t1, t2, k);
         }
@@ -425,46 +440,50 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       }
       ns_bound += global_ns() - t_phase;
       t_phase = global_ns();
-      if (key_count(warp_max(k1)) < thr) {  // no bound reaches min_frequency
+      if (row_key_count(warp_max(k1)) < thr) {  // no bound reaches min_frequency
         stop = true;
         break;
       }
-      const bool cand = k1 > best && key_count(k1) > 0;
+      const bool cand = k1 > best && row_key_count(k1) > 0;
       verified += __popc(__ballot_sync(kFullMask, cand));
       const u64 mine = __shfl_sync(kFullMask, k1, rank);
-      if (mine > best && key_count(mine) > 0) {
-        const int r = key_id(mine);
-        const u64 e = verify_row(counts + static_cast<size_t>(r) * V, lex_rank,
-                                 n, red);
+      if (mine > best && row_key_count(mine) > 0) {
+        const int slot = row_key_slot(mine);
+        const int r = lo + slot;
+        int col;
+        const int m = verify_row(counts + static_cast<size_t>(r) * V,
+                                 lex_rank, n, red, &col);
         if (tid == 0) {
-          const u64 exact =
-              (static_cast<u64>(static_cast<unsigned>(key_count(e))) << 32) |
-              (mine & 0xFFFFFFFFull);
-          row_max[r] = key_count(e);
-          keys[r - lo] = exact;
+          const u64 exact = row_key_with_count(mine, m);
+          row_max[r] = m;
+          keys[slot] = exact;
           pub_exact = exact;
-          pub_col = key_id(e);
+          pub_col = col;
         }
       } else if (tid == 0) {
         pub_exact = 0;
       }
       cluster.sync();
       u64 e = 0;
-      int col = 0;
+      int col = 0, src = 0;  // src: the CTA, so the stripe, e came from
       if (cand) {
         e = *cluster.map_shared_rank(&pub_exact, lane);
         col = *cluster.map_shared_rank(&pub_col, lane);
+        src = lane;
       }
       for (int o = 16; o > 0; o >>= 1) {
         const u64 oe = __shfl_xor_sync(kFullMask, e, o);
         const int oc = __shfl_xor_sync(kFullMask, col, o);
+        const int os = __shfl_xor_sync(kFullMask, src, o);
         if (oe > e) {
           e = oe;
           col = oc;
+          src = os;
         }
       }
       if (e > best) {
         best = e;
+        best_row = src * sz + row_key_slot(e);
         best_col = col;
       }
       ns_verify += global_ns() - t_phase;
@@ -473,8 +492,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       // verified this round.
       if (best >= warp_max(cand ? k2 : k1)) break;
     }
-    if (!stop && key_count(best) < thr) stop = true;
-    a = key_id(best);
+    if (!stop && row_key_count(best) < thr) stop = true;
+    a = best_row;
     b = best_col;
   }
 
@@ -483,7 +502,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       if (out != nullptr) {
         out[kOutA] = stop ? -1 : a;
         out[kOutB] = stop ? -1 : b;
-        out[kOutCount] = stop ? 0 : key_count(best);
+        out[kOutCount] = stop ? 0 : row_key_count(best);
         out[kOutRounds] = rounds;
         out[kOutVerified] = verified;
         out[kOutCtas] = ctas;
@@ -722,6 +741,8 @@ cudaError_t launch_apply(int n_blocks, cudaStream_t st, int* words,
 
 extern "C" int yabpe_hbm_max_width() { return kMaxWidth; }
 
+extern "C" int yabpe_hbm_max_vocab() { return kRowKeyMaxVocab; }
+
 extern "C" const char* yabpe_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -743,7 +764,8 @@ extern "C" int yabpe_hbm_merge_chunk(
     int* token_bytes, int* token_len, int* lex_rank, int* merges,
     int* scalars, int* stats, int N, int W, int V, int L, int step_begin,
     int step_end, int min_frequency, int replay_until, void* stream) {
-  if (W > kMaxWidth || W < 2 || V > 0xFFFF || V < 1 || L < 4 || L % 4)
+  if (W > kMaxWidth || W < 2 || V > kRowKeyMaxVocab || V < 1 || L < 4 ||
+      L % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int ctas = 0;
@@ -769,7 +791,8 @@ extern "C" int yabpe_hbm_merge_chunk(
 extern "C" int yabpe_hbm_select(const int* counts, int* row_max,
                                 int* lex_rank, int* scalars, int* out, int V,
                                 int min_frequency, void* stream) {
-  if (V > 0xFFFF || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (V > kRowKeyMaxVocab || V < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   int ctas = 0;
   size_t smem = 0;
   cudaError_t err = pick_cluster(V, 4, &ctas, &smem);

@@ -2,12 +2,13 @@
 // kernels' lazy selects (hbm_loop.cu's cluster select, fused_loop.cu's
 // striped select in one CTA).
 //
-// A key packs (count, lex rank, id) into 64 bits: a larger count wins,
+// K1's key packs (count, lex rank, id) into 64 bits: a larger count wins,
 // then a greater lex rank, then a greater id. Counts are >= 0; an
 // inactive slot (lex -1) ranks lowest; ids travel in 16 bits, so V <=
-// 0xFFFF. A select owns the live rows [0, n) in stripes of stripe_rows(n,
-// stripes) rows, a multiple of 4, the last stripes short or empty
-// (kernels/hbm_loop.py::_stripe_bounds models the same cut).
+// 0xFFFF. K2's row key (pack_row_key) holds ids and lex ranks up to 2^17
+// in the same order. A select owns the live rows [0, n) in stripes of
+// stripe_rows(n, stripes) rows, a multiple of 4, the last stripes short
+// or empty (kernels/hbm_loop.py::_stripe_bounds models the same cut).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,6 +31,40 @@ __device__ __forceinline__ int key_count(u64 k) {
 
 __device__ __forceinline__ int key_id(u64 k) {
   return static_cast<int>(k & 0xFFFF);
+}
+
+// K2's row key: (count in 31 | lex rank + 1 in 18 | slot in 15), the slot
+// the row's offset in its stripe, so row = the stripe's first row + slot.
+// Counts stay below 2^31 (the table's pair mass does, hbm_driver.py), lex
+// ranks below kRowKeyMaxVocab, and a stripe of a cluster of 8 or more CTAs
+// holds at most kRowKeyMaxVocab / 8 rows, inside the slot's 15 bits. The
+// live rows [0, n) of a select hold distinct lex ranks (dense over the
+// live tokens), so the slot never decides between two of them: the order
+// is (count, lex rank, id), as in K1's key, with no id in the key.
+constexpr int kRowSlotBits = 15;
+constexpr int kRowCountShift = 33;  // 18 bits of lex rank + 1 below it
+constexpr int kRowKeyMaxVocab = 1 << 17;
+static_assert(kRowKeyMaxVocab / 8 + 3 < (1 << kRowSlotBits),
+              "a stripe's slot must fit its bits");
+
+__device__ __forceinline__ u64 pack_row_key(int count, int lex, int slot) {
+  return (static_cast<u64>(static_cast<unsigned>(count)) << kRowCountShift) |
+         (static_cast<u64>(static_cast<unsigned>(lex + 1)) << kRowSlotBits) |
+         static_cast<u64>(slot);
+}
+
+__device__ __forceinline__ int row_key_count(u64 k) {
+  return static_cast<int>(k >> kRowCountShift);
+}
+
+__device__ __forceinline__ int row_key_slot(u64 k) {
+  return static_cast<int>(k & ((1u << kRowSlotBits) - 1));
+}
+
+// The key k with its count replaced by `count` (the row's exact max).
+__device__ __forceinline__ u64 row_key_with_count(u64 k, int count) {
+  return (static_cast<u64>(static_cast<unsigned>(count)) << kRowCountShift) |
+         (k & ((1ull << kRowCountShift) - 1));
 }
 
 // Rows a stripe owns: a multiple of 4, so every stripe starts 16-byte

@@ -72,6 +72,16 @@ N_STATS = 10
 #: Longest word (in symbols) the apply kernel of K2 (and K3) takes.
 MAX_WORD_WIDTH = 64
 
+#: Largest vocabulary K2 takes: its select keys hold ids and lex ranks
+#: below 2^17 (csrc/select_keys.cuh's kRowKeyMaxVocab), which covers 100k
+#: vocabularies. The K3 route keeps the JAX kernel's 63,488
+#: (dist/hbm_sharded.py).
+MAX_VOCAB_CAP = 1 << 17
+
+#: csrc/select_keys.cuh's row key: count << 33 | (lex rank + 1) << 15 | slot.
+_ROW_SLOT_BITS = 15
+_ROW_COUNT_SHIFT = 33
+
 #: CTAs in the select's thread-block cluster where a cluster of 16 fits.
 CLUSTER_CTAS = 16
 
@@ -316,8 +326,12 @@ def _library() -> ctypes.CDLL:
     lib.yabpe_hbm_cluster_ctas.argtypes = [ctypes.c_int] * 2
     lib.yabpe_hbm_select.restype = ctypes.c_int
     lib.yabpe_hbm_select.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.yabpe_hbm_max_vocab.restype = ctypes.c_int
+    lib.yabpe_hbm_max_vocab.argtypes = []
     if lib.yabpe_hbm_max_width() != MAX_WORD_WIDTH:
         raise RuntimeError("csrc/hbm_loop.cu disagrees on MAX_WORD_WIDTH")
+    if lib.yabpe_hbm_max_vocab() != MAX_VOCAB_CAP:
+        raise RuntimeError("csrc/hbm_loop.cu disagrees on MAX_VOCAB_CAP")
     return lib
 
 
@@ -441,17 +455,32 @@ def exact_select(
     return a, b, best
 
 
-def _pack_key(count, lex, idx):
-    """csrc/hbm_loop.cu's select key: count, then lex rank + 1, then id,
-    in 32 + 16 + 16 bits (ints or int64 tensors)."""
-    return (count << 32) | (((lex + 1) & 0xFFFF) << 16) | (idx & 0xFFFF)
+def _pack_key(count, lex, slot):
+    """K2's row key (csrc/select_keys.cuh's pack_row_key): count, then lex
+    rank + 1, then the row's slot in its stripe, in 31 + 18 + 15 bits (ints
+    or int64 tensors). Live rows hold distinct lex ranks, so the slot never
+    decides between two of them."""
+    return (count << _ROW_COUNT_SHIFT) | ((lex + 1) << _ROW_SLOT_BITS) | slot
+
+
+def _key_count(key: int) -> int:
+    return key >> _ROW_COUNT_SHIFT
+
+
+def _key_slot(key: int) -> int:
+    return key & ((1 << _ROW_SLOT_BITS) - 1)
+
+
+def _stripe_rows(n: int, ctas: int) -> int:
+    """Rows of a stripe: ceil(n / ctas) rounded up to a multiple of 4."""
+    return (-(-n // ctas) + 3) // 4 * 4
 
 
 def _stripe_bounds(n: int, ctas: int) -> list[tuple[int, int]]:
     """The rows [lo, hi) that each CTA of the select owns among the live
-    rows [0, n): stripes of ceil(n / ctas) rows rounded up to a multiple
-    of 4, the last ones short or empty."""
-    size = (-(-n // ctas) + 3) // 4 * 4
+    rows [0, n): stripes of :func:`_stripe_rows` rows, the last ones short
+    or empty."""
+    size = _stripe_rows(n, ctas)
     return [(min(c * size, n), min(c * size + size, n)) for c in range(ctas)]
 
 
@@ -470,10 +499,10 @@ def cluster_select_reference(
     ``row_max`` is an upper bound on each row's max count (stale rows
     allowed); ``lex_rank`` is the dense lex rank of the live ids [0,
     next_id). Each round takes the top two bound keys (count, lex rank,
-    id) of each of ``cluster`` row stripes, stops when no bound reaches
-    ``max(min_frequency, 1)``, and verifies each stripe's top row whose
-    key beats the best exact key so far: its exact max over the live
-    columns tightens ``row_max`` in place. The best exact key is accepted
+    slot in the stripe: :func:`_pack_key`) of each of ``cluster`` row
+    stripes, stops when no bound reaches ``max(min_frequency, 1)``, and
+    verifies each stripe's top row whose key beats the best exact key so
+    far: its exact max over the live columns tightens ``row_max`` in place. The best exact key is accepted
     when it is at least every bound key of a row not verified in the
     round (a verified stripe's second key, another stripe's top key).
 
@@ -484,40 +513,40 @@ def cluster_select_reference(
     n = next_id
     thr = max(min_frequency, 1)
     lex = lex_rank[:n].long()
-    ids = torch.arange(n, device=counts.device)
+    slots = torch.arange(n, device=counts.device) % _stripe_rows(n, cluster)
     stripes = _stripe_bounds(n, cluster)
-    best = best_col = rounds = 0
+    low = (1 << _ROW_COUNT_SHIFT) - 1  # a key's lex rank and slot
+    best = best_row = best_col = rounds = 0
     while True:
         rounds += 1
-        keys = _pack_key(row_max[:n].long(), lex, ids)
+        keys = _pack_key(row_max[:n].long(), lex, slots)
         tops = [
             (keys[lo:hi].sort(descending=True).values[:2].tolist() + [0, 0])[:2]
             for lo, hi in stripes
         ]
-        if max(t1 for t1, _ in tops) >> 32 < thr:
+        if _key_count(max(t1 for t1, _ in tops)) < thr:
             return -1, -1, 0, rounds
         unverified = 0
         verified = []
-        for t1, t2 in tops:
-            if t1 > best and t1 >> 32 > 0:
-                verified.append(t1)
+        for (lo, _), (t1, t2) in zip(stripes, tops):
+            if t1 > best and _key_count(t1) > 0:
+                verified.append((lo + _key_slot(t1), t1))
                 unverified = max(unverified, t2)
             else:
                 unverified = max(unverified, t1)
-        for t1 in verified:
-            r = t1 & 0xFFFF
+        for r, t1 in verified:
             row = counts[r, :n]
             m = int(row.max())
             row_max[r] = m
-            exact = (m << 32) | (t1 & 0xFFFFFFFF)
+            exact = (m << _ROW_COUNT_SHIFT) | (t1 & low)
             if exact > best:
-                best = exact
+                best, best_row = exact, r
                 best_col = int(torch.where(row == m, lex, -1).argmax())
         if best >= unverified:
             break
-    if best >> 32 < thr:
+    if _key_count(best) < thr:
         return -1, -1, 0, rounds
-    return best & 0xFFFF, best_col, best >> 32, rounds
+    return best_row, best_col, _key_count(best), rounds
 
 
 def _pairs(words: torch.Tensor, freqs: torch.Tensor, mask: torch.Tensor | None = None):

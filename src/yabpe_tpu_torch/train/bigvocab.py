@@ -3,7 +3,7 @@
 Counterpart of yabpe_tpu/train/bigvocab.py, in torch ops on the caller's
 device. The trainer runs this loop for problems past the merge kernels'
 limits (words of more than 64 symbols, pair mass past 2^31, vocab past
-63,488) at vocab > 2048. A full-table argmax per step would read the
+131,072) at vocab > 2048. A full-table argmax per step would read the
 whole [V, V] table, so the loop keeps ``row_max``, an upper bound on each
 row's max count: increases are folded in eagerly (a scatter max of the
 post-update values at every cell a delta touched, in
@@ -91,19 +91,20 @@ def lazy_select_2d(
     the row the JAX function finds.
     """
     v = counts.shape[0]
-    # (bound, lex rank) as one int64 key; lex + 1 < 2^16 (vocab <= 63,488).
+    # (bound, lex rank) as one int64 key: bound < 2^31 and lex + 1 < 2^32,
+    # so the key orders any vocabulary this loop takes.
     lex1 = lex_rank.long() + 1
     top = min(width, v)
     pad = -v % top
     stripe = torch.arange(top, device=counts.device)
     for _ in range(rounds):
-        key = torch.add(lex1, row_max, alpha=65536)
+        key = torch.add(lex1, row_max, alpha=1 << 32)
         if pad:
             key = torch.nn.functional.pad(key, (0, pad), value=-1)
         best = key.view(-1, top).argmax(dim=0)
         rows = (best * top + stripe).clamp(max=v - 1)
         row_max.index_copy_(0, rows, counts.index_select(0, rows).amax(dim=1))
-    a = torch.add(lex1, row_max, alpha=65536).argmax()
+    a = torch.add(lex1, row_max, alpha=1 << 32).argmax()
     m = row_max.index_select(0, a.view(1))[0]
     row = counts.index_select(0, a.view(1))[0]
     exact = row.max() == m

@@ -46,7 +46,12 @@ class BBPETrainerConfig:
             table as slabs of left-symbol rows ([V/nv, V] each) in the
             sharded loop.
         max_pair_table_bytes: guard rail for the dense [V, V] count table
-            (per slab, after vocab sharding).
+            (per slab, after vocab sharding): a larger table raises
+            ValueError. None (default): on a CUDA device the card decides,
+            a table the device's free memory cannot hold raising
+            RuntimeError (``hbm_driver.check_memory``: 40 GB for a 100k
+            vocabulary fits an 80 GB card); elsewhere
+            ``HOST_PAIR_TABLE_BYTES`` (11 GiB).
         count_strategy: how the fallback engines count pairs: "dense",
             "matmul" (the JAX package's MXU layout of the same counts; it
             must be exact, every possible count below 2^24, or raises
@@ -104,9 +109,7 @@ class BBPETrainerConfig:
     align_chunks_to_newline: bool = False
     data_shards: int | None = None
     vocab_shards: int = 1
-    # 11 GB admits GPT-2-scale vocabularies (50,257 -> a 10.1 GB [V, V]
-    # table) while still catching nonsense sizes.
-    max_pair_table_bytes: int = 11 * 1024 * 1024 * 1024
+    max_pair_table_bytes: int | None = None
     count_strategy: str = "dense"
     checkpoint_dir: str | None = None
     checkpoint_every_chunks: int = 4
@@ -118,4 +121,9 @@ class BBPETrainerConfig:
     device: str = "cuda"
 
 
-__all__ = ["BBPETrainerConfig"]
+#: The dense table's cap off CUDA by default: 11 GiB admits GPT-2-scale
+#: vocabularies (50,257 -> a 10.1 GB [V, V] table) while still catching
+#: nonsense sizes.
+HOST_PAIR_TABLE_BYTES = 11 * 1024 * 1024 * 1024
+
+__all__ = ["HOST_PAIR_TABLE_BYTES", "BBPETrainerConfig"]

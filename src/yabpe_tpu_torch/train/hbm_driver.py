@@ -9,7 +9,7 @@ and ``replay_until`` at its step count, as the JAX driver does (``:405``):
 the kernel replays those steps, then trains live.
 
 :func:`kernel_limits` is the admission as a predicate (the reason a
-problem is past the limits of K2 and K3, or with ``fused=True`` of K1, or
+problem is past the limits of K2, or with ``fused=True`` of K1, or
 None), and :func:`admit` its raising form, so that the trainer's route
 and :func:`run_hbm_merge_loop`'s own check never disagree (the rule of
 the JAX module's ``plan_buckets``, ``:121-124``). A problem past them goes to the fallback
@@ -32,13 +32,16 @@ from yabpe_tpu_torch.core import lexkey
 from yabpe_tpu_torch.core.vocab import Vocab
 from yabpe_tpu_torch.core.wordtable import WordTable
 from yabpe_tpu_torch.kernels.hbm_loop import (
+    MAX_VOCAB_CAP,
     MAX_WORD_WIDTH,
     N_SCALARS,
     N_STATS,
     NEXT_ID,
     NUM_DONE,
     STAT_NS_BOUND,
+    STAT_NS_COMPARE,
     STAT_NS_VERIFY,
+    STAT_NS_VOCAB,
     STAT_REPLAYED,
     STAT_VERIFIED,
     STOPPED,
@@ -48,11 +51,6 @@ from yabpe_tpu_torch.kernels.hbm_loop import (
 )
 from yabpe_tpu_torch.train.state import max_possible_pair_count
 from yabpe_tpu_torch.utils import profiling
-
-#: Token ids travel in 16 bits inside the kernel's selection keys; the
-#: JAX kernel's cap (31 slabs of 2048 columns) is kept, which covers
-#: GPT-2's 50,257.
-MAX_VOCAB_CAP = 63488
 
 #: Where the trainer sends problems past these limits.
 _ENGINES = "the trainer runs such problems on the bigvocab or incremental engine"
@@ -100,9 +98,9 @@ def state_bytes(n_words: int, width: int, vocab_cap: int, token_width: int,
 
 def kernel_limits(table: WordTable, vocab_cap: int, *, fused: bool = False) -> str | None:
     """Why the merge kernels cannot take this problem, or None where they
-    can. K2 and K3: vocab <= MAX_VOCAB_CAP (ids travel in 16 bits), word
-    width <= MAX_WORD_WIDTH (the apply's per-thread arrays) and total pair
-    mass below 2^31 (the int32 count table's exactness). K1
+    can. K2: vocab <= MAX_VOCAB_CAP (its select keys' ids and lex ranks),
+    word width <= MAX_WORD_WIDTH (the apply's per-thread arrays) and total
+    pair mass below 2^31 (the int32 count table's exactness). K1
     (``fused=True``): the same pair mass only, at any width; its vocab is
     kept far inside 16-bit ids by ``fused_driver.fused_applicable``'s
     48 MB plan, and csrc/fused_loop.cu's entry check refuses the rest."""
@@ -124,9 +122,12 @@ def kernel_limits(table: WordTable, vocab_cap: int, *, fused: bool = False) -> s
 def check_memory(need: int, device: torch.device) -> None:
     """Raise RuntimeError where ``need`` bytes of merge state exceed the
     free memory of a CUDA ``device``; every route needs the [V, V] table,
-    so none takes such a problem."""
+    so none takes such a problem. Free memory counts the blocks that
+    PyTorch's caching allocator holds unused (a previous training's
+    table, say), which it releases when an allocation needs them."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
+        free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
         if need > free:
             raise RuntimeError(
                 f"merge state needs {need} bytes but {device} has {free} free"
@@ -264,8 +265,9 @@ def run_chunks(
 
     While the tracer is on (utils/profiling.py), each chunk is a span and,
     for K2 on the card, the chunk's sync also reads ``state.stats`` into
-    the counters ``k2.steps``, ``k2.rows_verified`` and ``k2.select_ns``
-    (:func:`k2_counters`); off, it reads nothing more. The twin leaves
+    the counters ``k2.steps``, ``k2.rows_verified``, ``k2.select_ns``,
+    ``k2.bound_ns`` and ``k2.vocab_ns`` (:func:`k2_counters`); off, it
+    reads nothing more. The twin leaves
     ``stats`` alone, so on the CPU there are no such counters."""
     chunk = max(1, min(chunk_size, num_merges))
     k2 = isinstance(state, HbmState)
@@ -307,9 +309,12 @@ def k2_counters(before: tuple[list[int], list[int]],
                 after: tuple[list[int], list[int]]) -> dict[str, int]:
     """K2's counters over a stretch of steps, from ``(scalars, stats)`` read
     before and after it: live steps (merges done less replayed steps), the
-    rows the select verified, and the select's nanoseconds (bound passes
-    and verifies). Each ``stats`` slot is an int32 that wraps, so each
-    difference is taken modulo 2^32."""
+    rows the select verified, and nanoseconds of the step kernel's phases
+    whose work grows with the vocabulary: the select (bound passes and
+    verifies), the bound passes alone, and the vocab phases (the dedup
+    compare and lex-rank insertion, then the vocab update and the record).
+    A replayed step adds to none of these slots. Each ``stats`` slot is an
+    int32 that wraps, so each difference is taken modulo 2^32."""
     (s0, t0), (s1, t1) = before, after
 
     def diff(slot: int) -> int:
@@ -319,6 +324,8 @@ def k2_counters(before: tuple[list[int], list[int]],
         "k2.steps": s1[NUM_DONE] - s0[NUM_DONE] - diff(STAT_REPLAYED),
         "k2.rows_verified": diff(STAT_VERIFIED),
         "k2.select_ns": diff(STAT_NS_BOUND) + diff(STAT_NS_VERIFY),
+        "k2.bound_ns": diff(STAT_NS_BOUND),
+        "k2.vocab_ns": diff(STAT_NS_COMPARE) + diff(STAT_NS_VOCAB),
     }
 
 

@@ -22,7 +22,7 @@ validation). Routing, which in the port is explicit:
      without ``checkpoint_dir`` (:meth:`BBPETrainer._should_use_fused`);
   2. the large-vocabulary kernel K2 (kernels/hbm_loop.py) for problems
      within the kernels' limits (``hbm_driver.kernel_limits``: vocab <=
-     63,488, words of at most 64 symbols, pair mass below 2^31);
+     131,072, words of at most 64 symbols, pair mass below 2^31);
   3. past them, the bigvocab engine (train/bigvocab.py) at vocab > 2048,
   4. else the incremental engine (train/incremental.py); both are the JAX
      package's XLA engines in torch ops, on the same device.
@@ -67,7 +67,7 @@ from yabpe_tpu_torch.core.wordtable import WordTable
 from yabpe_tpu_torch.dist.mesh import process_info
 from yabpe_tpu_torch.io.native import save_model
 from yabpe_tpu_torch.pretok.ingest import count_pretokens, count_pretokens_raw
-from yabpe_tpu_torch.train.config import BBPETrainerConfig
+from yabpe_tpu_torch.train.config import HOST_PAIR_TABLE_BYTES, BBPETrainerConfig
 from yabpe_tpu_torch.train.model import BBPEModel
 from yabpe_tpu_torch.train.reference_loop import train_merges_oracle
 from yabpe_tpu_torch.utils.logging import get_logger
@@ -215,6 +215,7 @@ class BBPETrainer:
         """The device route over the raw word export (blob, lens, counts)."""
         import torch
 
+        from yabpe_tpu_torch.train import hbm_driver
         from yabpe_tpu_torch.train import state as train_state
 
         cfg = self.config
@@ -230,7 +231,12 @@ class BBPETrainer:
             return base, []
         vocab_cap = max(cfg.vocab_size, len(base))
         table_bytes = 4 * vocab_cap * vocab_cap // max(1, cfg.vocab_shards)
-        if table_bytes > cfg.max_pair_table_bytes:
+        cap = cfg.max_pair_table_bytes
+        if cap is None and device.type != "cuda":
+            cap = HOST_PAIR_TABLE_BYTES
+        if cap is None:  # the card decides: its free memory must hold the table
+            hbm_driver.check_memory(table_bytes, device)
+        elif table_bytes > cap:
             raise ValueError(
                 f"dense pair table would need {table_bytes} bytes for "
                 f"vocab_cap={vocab_cap}; raise max_pair_table_bytes or lower "

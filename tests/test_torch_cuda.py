@@ -278,6 +278,108 @@ def test_kernel_select_matches_model(name, seed):
     assert torch.equal(dev[1].cpu(), model_max)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["high_ids", "ties_across_stripes", "stale"])
+def test_kernel_select_past_16_bit_ids(case):
+    """K2's select at V = 70,000 (a 19.6 GB table, built on the card)
+    against cluster_select_reference on the same card tensors, with the
+    winning row, its column and their lex ranks past 65,535: the same pair,
+    count and verify rounds, the same tightened row_max, and the exact
+    select's pair.
+
+    - high_ids: the top count in one row past 65,535, in three columns on
+      both sides of it (the greatest lex rank, past 65,535, wins);
+    - ties_across_stripes: the top count in ten rows over every stripe,
+      on both sides of 65,535;
+    - stale: rows past 65,535 ranked above the winner hold stale bounds
+      above the top count, so the select verifies and tightens them."""
+    _need_cuda()
+    rng = np.random.default_rng(["high_ids", "ties_across_stripes", "stale"].index(case))
+    v, n, nnz = 70_000, 69_990, 400_000
+    counts = torch.zeros((v, v), dtype=torch.int32, device="cuda")
+    cells = rng.integers(0, n, (2, nnz))
+    counts[torch.from_numpy(cells[0]).cuda(), torch.from_numpy(cells[1]).cuda()] = (
+        torch.from_numpy(rng.integers(1, 9, nnz).astype(np.int32)).cuda())
+    lex = np.full(v, -1, dtype=np.int32)
+    lex[:n] = rng.permutation(n)
+    top = 20
+    high = rng.choice(np.arange(65_536, n), 8, replace=False)
+    win = int(high[0])
+    if case == "high_ids":
+        cols = [100, 65_400, 69_000]
+        for r, rank in zip([win, *cols], [n - 1, n - 4, n - 3, n - 2]):
+            j = int(np.flatnonzero(lex == rank)[0])  # a swap keeps a permutation
+            lex[[r, j]] = lex[[j, r]]
+        counts[win, cols] = top
+    elif case == "ties_across_stripes":
+        for r in list(high[:4]) + list(rng.choice(65_536, 6, replace=False)):
+            counts[int(r), int(rng.integers(0, n))] = top
+    else:
+        counts[win, int(rng.integers(0, n))] = top
+    exact = counts.amax(dim=1)
+    row_max = exact.clone()
+    stale = torch.from_numpy(rng.random(v) < 0.3).cuda()
+    row_max[stale] += torch.from_numpy(rng.integers(1, 4, v).astype(np.int32)).cuda()[stale]
+    if case == "stale":
+        above = [int(r) for r in high[1:] if lex[r] > lex[win]]
+        assert above
+        row_max[above] = top + 3
+    row_max[n:] = 0
+    lex_t = torch.from_numpy(lex).cuda()
+    model_max = row_max.clone()
+    a, b, count, rounds, ctas = hbm_loop.hbm_select_step(
+        counts, row_max, lex_t, next_id=n, min_frequency=1
+    )
+    want = hbm_loop.cluster_select_reference(
+        counts, model_max, lex_t, next_id=n, min_frequency=1, cluster=ctas
+    )
+    assert (a, b, count, rounds) == want
+    assert torch.equal(row_max, model_max)
+    assert (a, b, count) == hbm_loop.exact_select(counts, exact, lex_t)
+    assert count == top
+    if case == "high_ids":
+        assert (a, b) == (win, 69_000) and lex[a] > 65_535 and lex[b] > 65_535
+    if case == "stale":
+        assert bool((row_max[above] < top + 3).any())
+
+
+def _load_by_path(name: str, path: Path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_trainer_at_vocab_70000_runs_k2(tmp_path):
+    """A 70,000-token vocabulary (a 19.6 GB table; ids and lex ranks past
+    65,535 from merge 65,280 on) on the default route with the library's
+    defaults: it takes K2, and its 69,743 merges and vocab equal the native
+    loop's and the benchmark's plain reference's (perfbench/reference/)
+    exactly. The corpus is perfbench/corpus.py's, 6 MiB from a fixed seed:
+    one 8 MiB span, so the reference counts it in this process."""
+    _need_cuda()
+    perfbench = Path(__file__).resolve().parent.parent / "perfbench"
+    corpus = _load_by_path("perfbench_corpus", perfbench / "corpus.py")
+    ref_pretok = _load_by_path("perfbench_ref_pretok", perfbench / "reference" / "pretok.py")
+    ref_train = _load_by_path("perfbench_ref_train", perfbench / "reference" / "train.py")
+    files = corpus.generate(tmp_path, 12345, {"bytes": 6 << 20, "files": 1, "lexicon": 200_000})
+    kw = dict(vocab_size=70_000, special_tokens=SPECIALS, min_frequency=1)
+    before = hbm_loop.LAUNCHES["hbm_merge_chunk"]
+    trainer = BBPETrainer(BBPETrainerConfig(**kw))
+    model = trainer.train(files)
+    assert trainer.route == "K2"
+    assert hbm_loop.LAUNCHES["hbm_merge_chunk"] > before
+    assert len(model.merges) == 70_000 - 257
+    native = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True)).train(files)
+    assert model.merges == native.merges and model.vocab == native.vocab
+    counts = ref_pretok.count_words(files, SPECIALS, 8 << 20)
+    want_vocab, want_merges = ref_train.train_bpe(counts, SPECIALS, 70_000, 1)
+    assert model.merges == want_merges and model.vocab == want_vocab
+
+
 def _poison_allocator(nbytes: int = 64 << 20) -> None:
     """Leave ``nbytes`` of the caching allocator's free blocks holding ids
     >= 0 (0x01010101), so that the kernel's fresh outputs start out as

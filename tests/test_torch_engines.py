@@ -356,3 +356,20 @@ def test_trainer_routes_and_forced_kernels(wide_corpus):
         BBPETrainer(BBPETrainerConfig(
             **kw, use_fused_kernel=False, use_hbm_kernel=True,
         )).train([wide])
+
+
+@pytest.mark.parametrize("v", [300, 70_000])
+def test_bigvocab_select_orders_lex_ranks_past_16_bits(v):
+    """The bigvocab engine's (bound, lex rank) key at a vocabulary past
+    65,536 ids, where the engine now takes what K2 does not: a row of count
+    10 and lex rank 5 beats one of count 9 and the greatest lex rank. The
+    table repeats each row's count across its columns (a strided view, so
+    no [V, V] array is made)."""
+    per_row = torch.zeros(v, dtype=torch.int32)
+    lex = torch.arange(v, dtype=torch.int32).flip(0)  # row v - 1 has lex rank 0
+    top, runner_up = v - 6, 0  # lex ranks 5 and v - 1
+    per_row[top], per_row[runner_up] = 10, 9
+    counts = per_row.as_strided((v, v), (1, 0))
+    a, b, m, exact = bigvocab.lazy_select_2d(counts, per_row.clone(), lex)
+    assert bool(exact) and (int(a), int(m)) == (top, 10)
+    assert int(b) == int(lex.argmax())  # every column holds the count: the greatest lex rank

@@ -218,7 +218,8 @@ def test_admission_limits():
     heavy = WordTable.from_counter(Counter({b"abc": 2**30}))
     narrow = WordTable.from_counter(Counter({b"abc": 3}))
     for table, vocab_cap, what in [
-        (wide, 300, "width"), (heavy, 300, "pair mass"), (narrow, 70000, "vocab"),
+        (wide, 300, "width"), (heavy, 300, "pair mass"),
+        (narrow, hbm_driver.MAX_VOCAB_CAP + 1, "vocab"),
     ]:
         assert what in hbm_driver.kernel_limits(table, vocab_cap)
         with pytest.raises(hbm_driver.HbmKernelUnsupported, match=what):
@@ -227,6 +228,58 @@ def test_admission_limits():
                 min_frequency=1, device="cpu",
             )
     assert hbm_driver.kernel_limits(narrow, 300) is None
+
+
+def test_kernel_limits_admit_a_100k_vocabulary():
+    """K2 takes DeepSeek LLM's 100,001 ids at the widest word it admits, and
+    still refuses a wider word and a pair mass of 2^31; the K3 route keeps
+    the JAX loop's 63,488."""
+    from yabpe_tpu_torch.dist import hbm_sharded
+
+    assert hbm_driver.MAX_VOCAB_CAP == hbm_loop.MAX_VOCAB_CAP == 1 << 17
+    at_width = WordTable.from_counter(Counter({b"x" * 64: 1, b"abc": 3}))
+    assert at_width.width == hbm_loop.MAX_WORD_WIDTH
+    assert hbm_driver.kernel_limits(at_width, 100_001) is None
+    assert hbm_driver.kernel_limits(at_width, 1 << 17) is None
+    past = WordTable.from_counter(Counter({b"x" * 65: 1}))
+    assert "width" in hbm_driver.kernel_limits(past, 100_001)
+    heavy = WordTable.from_counter(Counter({b"abc": 2**30}))  # two pairs of 2^30
+    assert "pair mass" in hbm_driver.kernel_limits(heavy, 100_001)
+    assert not hbm_sharded.hbm_sharded_applicable(10, 8, 63_489)
+    assert hbm_sharded.hbm_sharded_applicable(10, 8, 63_488)
+    with pytest.raises(hbm_sharded.HbmShardedUnsupported, match="63488"):
+        hbm_sharded._admit(at_width, 100_001)
+
+
+@pytest.mark.parametrize("ctas", [8, 16])
+def test_row_key_model_orders_as_the_tuple_order(ctas):
+    """K2's row key (csrc/select_keys.cuh's pack_row_key, modelled by
+    ``_pack_key``) over 131,072 rows, counts up to 2^31 - 1 with many ties,
+    ids and lex ranks on both sides of 65,535: the keys order live rows
+    (distinct lex ranks, as the select's rows [0, n) always hold) exactly
+    as (count, lex rank, id) does; an inactive row (rank -1) ranks below
+    every live row of its count, and by id within its stripe; each key
+    gives back its count, its lex rank and its row (the stripe's first row
+    plus the slot). The CPU suite cannot run K2's twin past 65,535 ids (a
+    [V, V] table of more than 17 GB): tests/test_torch_cuda.py runs the
+    kernel there."""
+    v = 1 << 17
+    rng = np.random.default_rng(ctas)
+    tied = np.array([0, 1, 7, 65_535, 65_536, 2**31 - 2, 2**31 - 1])
+    counts = np.where(rng.random(v) < 0.5, rng.choice(tied, v), rng.integers(0, 2**31, v))
+    counts, lex = counts.tolist(), rng.permutation(v).tolist()
+    size = hbm_loop._stripe_rows(v, ctas)
+    keys = [hbm_loop._pack_key(counts[i], lex[i], i % size) for i in range(v)]
+    assert max(keys) < 2**64 and min(keys) >= 0
+    by_key = sorted(range(v), key=keys.__getitem__, reverse=True)
+    assert by_key == sorted(range(v), key=lambda i: (counts[i], lex[i], i), reverse=True)
+    for i in (0, 65_534, 65_535, 65_536, 65_537, v - 1):
+        assert hbm_loop._key_count(keys[i]) == counts[i]
+        assert (keys[i] >> 15) % (1 << 18) == lex[i] + 1
+        assert (i // size) * size + hbm_loop._key_slot(keys[i]) == i
+    for c in (0, 65_536, 2**31 - 1):
+        dead = [hbm_loop._pack_key(c, -1, slot) for slot in range(size)]
+        assert dead == sorted(dead) and dead[-1] < hbm_loop._pack_key(c, 0, 0)
 
 
 

@@ -260,6 +260,57 @@ def test_pair_table_guard_divides_by_vocab_shards():
     assert got.merges == want.merges
 
 
+class _Admitted(Exception):
+    """Raised in place of the word table: the guard let the table through."""
+
+
+@pytest.mark.parametrize("free_gb,cached_gb,explicit,device,admitted", [
+    (79, 0, None, "cuda", True),  # a 40 GB table on an 80 GB card
+    (30, 0, None, "cuda", False),  # the card cannot hold it
+    (30, 40, None, "cuda", True),  # a previous training's table, cached by torch
+    (79, 0, 11 * 1024**3, "cuda", False),  # an explicit cap still caps
+    (79, 0, 50 * 10**9, "cuda", True),
+    (79, 0, None, "cpu", False),  # off CUDA the default stays 11 GiB
+])
+def test_pair_table_guard_follows_the_card(monkeypatch, free_gb, cached_gb, explicit, device,
+                                           admitted):
+    """The dense table of a 100,001-token vocabulary (40.0 GB): by default on
+    CUDA the device's free memory decides (hbm_driver.check_memory, with the
+    caching allocator's unused blocks counted free), under a stubbed
+    ``torch.cuda``; an explicit ``max_pair_table_bytes`` caps it, and off
+    CUDA the default is HOST_PAIR_TABLE_BYTES."""
+    import numpy as np
+
+    from yabpe_tpu_torch.core.vocab import Vocab
+    from yabpe_tpu_torch.train import trainer as trainer_module
+    from yabpe_tpu_torch.train.config import HOST_PAIR_TABLE_BYTES
+
+    assert HOST_PAIR_TABLE_BYTES == 11 * 1024**3
+    assert BBPETrainerConfig().max_pair_table_bytes is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free_gb * 10**9, 80 * 10**9))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: (cached_gb + 1) * 10**9)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 10**9)
+
+    def word_table(*raw):
+        raise _Admitted
+
+    monkeypatch.setattr(trainer_module.WordTable, "from_raw", staticmethod(word_table))
+    cfg = BBPETrainerConfig(vocab_size=100_001, special_tokens=SPECIALS, min_frequency=1,
+                            max_pair_table_bytes=explicit, device=device)
+    raw = (b"ab", np.array([2], dtype=np.int64), np.array([3], dtype=np.int64))
+    base = Vocab.base(SPECIALS)
+    if admitted:
+        with pytest.raises(_Admitted):
+            BBPETrainer(cfg)._train_device(raw, base)
+    elif explicit is None and device == "cuda":
+        with pytest.raises(RuntimeError, match="merge state needs 40000800004 bytes"):
+            BBPETrainer(cfg)._train_device(raw, base)
+    else:
+        with pytest.raises(ValueError, match="dense pair table would need 40000800004"):
+            BBPETrainer(cfg)._train_device(raw, base)
+
+
 def test_default_device_is_cuda_and_never_falls_back():
     assert BBPETrainerConfig().device == "cuda"
     if torch.cuda.is_available():
