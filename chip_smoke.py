@@ -303,14 +303,18 @@ def kernel_vs_twin(label, table, base, vocab_cap, min_frequency, card):
         check(diff == 0, f"{label}: kernel and twin differ in {name} (max {diff})")
     check(torch.equal(kern.scalars[:3], twin.scalars[:3]), f"{label}: scalars differ")
     check(bool((kern.row_max >= kern.counts.amax(dim=1)).all()), f"{label}: row_max below a row max")
+    check(bool((kern.block_max >= hbm_loop.exact_block_max(kern.counts)).all()),
+          f"{label}: block_max below a block's max")
     steps = int(kern.scalars[2])
     rounds, verified = (int(x) for x in kern.stats[:2])
+    blocks = int(kern.stats[hbm_loop.STAT_BLOCKS_READ])
     ctas = hbm_loop.cluster_ctas(vocab_cap, kern.token_bytes.shape[1])
     print(f"{label}: V={vocab_cap} N={table.words.shape[0]} W={table.words.shape[1]} "
           f"steps={steps} affected_words={tally.get('affected_words', 0)} "
           f"kernel_chunk_ms={ms} kernel_us_per_step={1e3 * ms / max(steps, 1)} "
           f"verify_rounds_per_step={rounds / max(steps, 1)} "
-          f"verified_rows_per_step={verified / max(steps, 1)} cluster_ctas={ctas} "
+          f"verified_rows_per_step={verified / max(steps, 1)} "
+          f"blocks_per_verified_row={blocks / max(verified, 1)} cluster_ctas={ctas} "
           f"twin_chunk_ms={plain_ms} needed_bytes={tally['bytes']} "
           f"max_abs_err={err} (tolerance: exact) [{card}]")
     merges = kern.merges.cpu().numpy()
@@ -348,6 +352,8 @@ def k2_replay_vs_twin(table, base, vocab_cap, min_frequency, record, until, card
           and int(kern.scalars[hbm_loop.DIVERGED]) == int(twin.scalars[hbm_loop.DIVERGED]) == 0,
           "k2 replay: scalars differ")
     check(bool((kern.row_max >= kern.counts.amax(dim=1)).all()), "k2 replay: row_max below a row max")
+    check(bool((kern.block_max >= hbm_loop.exact_block_max(kern.counts)).all()),
+          "k2 replay: block_max below a block's max")
     check((kern.merges.cpu().numpy()[:CHUNK] == record[:CHUNK]).all(),
           "k2 replay: merges differ from phase 3's")
     replayed = int(kern.stats[hbm_loop.STAT_REPLAYED])

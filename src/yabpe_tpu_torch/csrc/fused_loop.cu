@@ -529,7 +529,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       break;
     }
     const int a = p0[0], b = p0[1], c = p0[2];
-    yabpe::TableSink sink{counts, V, row_max};
+    yabpe::TableSink sink{counts, V, row_max, nullptr};
     for (int i = gtid; i < N; i += gsize) {
       int* w = words + static_cast<size_t>(i) * W;
       if constexpr (kWide)

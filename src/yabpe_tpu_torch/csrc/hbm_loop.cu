@@ -7,15 +7,19 @@
 //   freqs       [N]    int32   word frequencies
 //   counts      [V, V] int32   exact pair counts
 //   row_max     [V]    int32   an upper bound on each row's max count
+//   block_max   [V, NB] int32  an upper bound on the max count of each
+//                              block of kBlockCols columns of a row
+//                              (NB = block_count(V), merge_apply.cuh)
 //   token_bytes [V, L] int32   token byte strings, -1 padded
 //   token_len   [V], lex_rank [V] int32 (dense lex rank, -1 = inactive)
 //   merges      [M, 3] int32   (a, b, c) per step, -1 where not taken
 //   scalars     [8]    int32   next_id, stopped, num_done, this step's
 //                              (a, b, c) for the apply kernel, and the
 //                              replay divergence flag
-//   stats       [10]   int32   verify rounds, rows verified, the step
-//                              kernel's time by phase, and the replayed
-//                              steps and their time (enum Stat)
+//   stats       [11]   int32   verify rounds, rows verified, the step
+//                              kernel's time by phase, the replayed
+//                              steps and their time, and the column
+//                              blocks the verifies read (enum Stat)
 // Each step is the JAX kernel's chain: select the pair with the highest
 // count (ties to the lexicographically greatest (left, right) byte
 // strings), grow the vocab (merged bytes, dedup against live tokens,
@@ -35,8 +39,8 @@
 // whose ids are not live, or whose merged id differs from the id the vocab
 // update gives, sets scalars[kDiverged] to the step + 1 and stops; the
 // driver raises. Replay reads no count row and tightens no bound: row_max
-// stays an upper bound through the apply's atomicMax, so the lazy select
-// is exact when the live steps begin.
+// and block_max stay upper bounds through the apply's atomicMax, so the
+// lazy select is exact when the live steps begin.
 //
 // Launch shape. Two launches per step, chained by programmatic dependent
 // launch (PDL: each kernel lets the next one launch at its start, and
@@ -65,46 +69,55 @@
 //     (select_keys.cuh), and keeps the stripe's keys in shared memory for
 //     the step's later rounds;
 //   - verify: each CTA whose stripe top beats the best exact key found so
-//     far reads that count row over the live columns [0, next_id) in
-//     16-byte loads and takes its max count (a block max); then lex_rank
-//     is read only at the columns that hold the max, never in full, and a
-//     second block max gives the column. Up to 16 rows are verified per
-//     round, one per SM, in parallel;
+//     far finds that row's exact max over the live columns [0, next_id)
+//     (verify_row). A row of at most 8 blocks of 1,024 columns is read
+//     whole, one 32 KB batch; a longer one through its block bounds:
+//     block 0 and the bounds at once, then in full only the blocks whose
+//     bound reaches a count the blocks read can still be beaten by, each
+//     tightened to its exact max. lex_rank is read only at the columns
+//     that hold the max, never in full, and a block max gives the column.
+//     Up to 16 rows are verified per round, one per SM, in parallel;
 //   - acceptance: the best verified exact key E = pack_row_key(exact max,
 //     lex_rank, slot) is taken when E >= every bound key of a row not
 //     verified in the round (the second key of a verified stripe, the top
 //     key of any other stripe); else another round runs. E's row is its
 //     stripe's first row + its slot: the stripe travels with E across the
 //     cluster as the lane that read it.
-// Exactness rule. row_max[r] >= max(counts[r]) holds for every row after
-// every step: bounds only go up (atomicMax in the apply's TableSink), and
-// a verified row's bound is tightened to its exact max. So an E that
-// beats every unverified bound beats every row's exact key, and the row
-// it names is the twin's: the highest count, ties to the greatest lex
-// rank; its column is the greatest lex rank among the columns equal to
-// that count. A row key holds the row's slot, not its id, and the
-// column's pick packs (lex rank + 1, column) in 32 bits each, so ids and
-// lex ranks reach kRowKeyMaxVocab = 2^17 (select_keys.cuh) with counts of
-// 31 bits.
+// Exactness rule. row_max[r] >= max(counts[r]) and block_max[r, k] >=
+// max(counts[r, k*kBlockCols:(k+1)*kBlockCols]) hold for every row and
+// block after every step: bounds only go up (atomicMax in the apply's
+// TableSink), and a verified row's bound and each block it read are
+// tightened to their exact max. A block the verify leaves unread has a
+// bound below the best count it read (or no count, bound 0), so it holds
+// neither the row's max nor a tie of it: the read blocks give the row's
+// exact max and its column. So an E that beats every unverified bound
+// beats every row's exact key, and the row it names is the twin's: the
+// highest count, ties to the greatest lex rank; its column is the
+// greatest lex rank among the columns equal to that count. A row key
+// holds the row's slot, not its id, and the column's pick packs (lex rank
+// + 1, column) in 32 bits each, so ids and lex ranks reach
+// kRowKeyMaxVocab = 2^17 (select_keys.cuh) with counts of 31 bits.
 // kernels/hbm_loop.py::cluster_select_reference is this round structure
 // in torch, and yabpe_hbm_select runs this kernel's select alone, so the
-// rounds and the tightened row_max are held to it.
+// rounds, the blocks read and the tightened row_max and block_max are
+// held to it.
 //
-// What bounds it now (H100, 100 MB / vocab 32,000; PERF.md,
-// scripts/k2_variants.py). The 16 chunks take about 733 ms against 1,678
-// ms before, 22-26 us a step against 49-64 us. The step kernel, 11 us of
-// a step early in the run and 19 us late, is a chain of dependent
-// latencies, not bytes: per round the stripe's bounds or the verified
-// count row (32 KB per load batch of a CTA, so four batches for a row of
-// 32,000 live columns), two block reductions and a cluster barrier (~0.7
-// us), 1.35-1.4 rounds a step; then rows a and b and the stripe's tokens
-// for the compare, a barrier, and the vocab update. The apply
-// kernel and the hand-offs take the other ~7 us: it scans the whole word
-// table (N*W*4 bytes, ~25 MB, inside the 50 MB L2) every step to find the
-// few words that hold the pair. PDL saves about 1.8 us a step over plain
+// What bounds it now (H100 at 700 W, 100 MiB, PERF.md section 5). A step
+// is a chain of dependent latencies, not bytes: 18 us at vocab 100,001
+// and 15 us at 32,000 of step kernel, 1.36-1.42 verify rounds a step.
+// Each round is a bound pass over the stripe's row_max and lex_rank (3.1
+// and 2.6 us a step, the first round's; later rounds reuse the keys in
+// shared memory), the verify (6.9 and 6.4 us a step: block 0 and the
+// bounds, 2.3 and 2.7 blocks a row in all, the lex rank, two block
+// reductions, a cluster barrier of ~0.65 us); then rows a and b and the
+// stripe's tokens for the dedup compare, and the vocab update (8.4 and
+// 5.2 us a step: they grow with the live ids). The apply kernel and
+// the hand-offs take the other ~7 us: it scans the whole word table
+// (N*W*4 bytes, ~25 MB, inside the 50 MB L2) every step to find the few
+// words that hold the pair. PDL saves about 1.8 us a step over plain
 // stream order. Left for later: an inverted index (pair -> words) in
 // place of that scan, shared with replay_emit.cu through merge_apply.cuh,
-// and warp-aggregated atomics for the hot cells of the first merges.
+// and the compare over the live ids.
 //
 // Exactness of the table. The apply step (merge_apply.cuh, shared with
 // fused_loop.cu and replay_emit.cu), with its table sink, keeps counts
@@ -165,14 +178,24 @@ enum Stat : int {
   kNsBarrier = 7,  // the first round's first cluster barrier alone
   kReplayed = 8,   // replayed steps (in none of the slots above)
   kNsReplay = 9,   // the whole step kernel of the replayed steps
+  kBlocksRead = 10,  // column blocks the verifies read in full
 };
 
 // yabpe_hbm_select's output.
 enum Out : int {
-  kOutA = 0, kOutB, kOutCount, kOutRounds, kOutVerified, kOutCtas, kNumOut
+  kOutA = 0, kOutB, kOutCount, kOutRounds, kOutVerified, kOutCtas,
+  kOutBlocks, kNumOut
 };
 
 constexpr int kStepThreads = 256;
+constexpr int kStepWarps = kStepThreads / 32;
+using yabpe::block_count;
+using yabpe::kBlockCols;
+using yabpe::kBlockShift;
+// A verify keeps a row's block list in shared memory, and thread t holds
+// the bound of block t.
+constexpr int kMaxBlocks = (kRowKeyMaxVocab + kBlockCols - 1) / kBlockCols;
+static_assert(kMaxBlocks <= kStepThreads, "a thread per block bound");
 constexpr int kApplyThreads = 256;
 
 __device__ __forceinline__ long long global_ns() {
@@ -230,7 +253,7 @@ __device__ void block_top2(u64& t1, u64& t2, u64* red) {
 }
 
 // Max over the block; every thread gets the result. `red` holds 33 or more.
-__device__ u64 block_max(u64 v, u64* red) {
+__device__ u64 reduce_max(u64 v, u64* red) {
   v = warp_max(v);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) red[warp] = v;
@@ -284,14 +307,18 @@ __device__ __forceinline__ void for_my_columns(const int* row, int n, F&& f) {
   for (int c = head + 4 * n4 + tid; c < n; c += T) f(c, row[c]);
 }
 
-// The exact max count of count row `row` over its live columns [0, n), 0
-// for a row without a count; *col_out gets the column with the greatest
-// lex rank among those equal to it (0 for none). Two passes: the max, with
-// no lex_rank read, then lex_rank only at the columns that hold it (one
-// load where a thread saw the max once, a re-read of its columns, from
-// L1, on a tie), and a block max over (lex rank + 1, column).
-__device__ int verify_row(const int* row, const int* lex_rank, int n,
-                          u64* red, int* col_out) {
+// Rows of at most this many blocks (one batch of for_my_columns, 32 KB)
+// are verified whole: below it the block bounds' extra ballots and
+// barriers cost more than the batch they save.
+constexpr int kWholeBlocks = kBatch * kStepThreads * 4 / kBlockCols;
+
+// verify_row for a row of at most kWholeBlocks blocks, read whole in one
+// batch: the max, with no lex_rank read, then lex_rank only at the
+// columns that hold it (one load where a thread saw the max once, a
+// re-read of its columns, from L1, on a tie), and a block max over (lex
+// rank + 1, column). No block bound is read or tightened.
+__device__ int verify_whole(const int* row, const int* lex_rank, int n,
+                            u64* red, int* col_out) {
   int m = -1, col = 0, ties = 0;
   for_my_columns(row, n, [&](int c, int v) {
     if (v > m) {
@@ -303,7 +330,7 @@ __device__ int verify_row(const int* row, const int* lex_rank, int n,
     }
   });
   const int best = static_cast<int>(
-      block_max(static_cast<u64>(static_cast<unsigned>(max(m, 0))), red));
+      reduce_max(static_cast<u64>(static_cast<unsigned>(max(m, 0))), red));
   *col_out = 0;
   if (best <= 0) return 0;
   int l = -1;
@@ -322,7 +349,207 @@ __device__ int verify_row(const int* row, const int* lex_rank, int n,
       });
     }
   }
-  const u64 pick = block_max(
+  const u64 pick = reduce_max(
+      l < 0 ? 0ull
+            : (static_cast<u64>(l + 1) << 32) | static_cast<unsigned>(col),
+      red);
+  *col_out = static_cast<int>(pick & 0xFFFFFFFFull);
+  return best;
+}
+
+// Calls f(c, counts of column c) for lane `lane`'s share of the columns
+// [c0, c1) of a count row, c1 - c0 <= kBlockCols, read by one warp: int4
+// loads over the 16-byte-aligned body, all issued before any is used (8 a
+// lane, so a warp holds a whole block of 4 KB in flight), and the at most
+// three columns on either side of it. Lane j reads body int4s j, j + 32, ...
+constexpr int kLaneLoads = kBlockCols / 128;
+
+template <class F>
+__device__ __forceinline__ void for_block_columns(const int* row, int c0, int c1,
+                                                  int lane, F&& f) {
+  const int* p = row + c0;
+  const int len = c1 - c0;
+  const int head = min(
+      static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) >> 2),
+      len);
+  const int n4 = (len - head) >> 2;
+  const int tail = head + 4 * n4;
+  const int4* q = reinterpret_cast<const int4*>(p + head);
+  int4 v[kLaneLoads];
+#pragma unroll
+  for (int u = 0; u < kLaneLoads; ++u) {
+    const int j = lane + 32 * u;
+    v[u] = j < n4 ? q[j] : make_int4(0, 0, 0, 0);
+  }
+  const int hv = lane < head ? p[lane] : 0;
+  const int tv = tail + lane < len ? p[tail + lane] : 0;
+  if (lane < head) f(c0 + lane, hv);
+#pragma unroll
+  for (int u = 0; u < kLaneLoads; ++u) {
+    const int j = lane + 32 * u;
+    if (j < n4) {
+      const int c = c0 + head + 4 * j;
+      f(c, v[u].x);
+      f(c + 1, v[u].y);
+      f(c + 2, v[u].z);
+      f(c + 3, v[u].w);
+    }
+  }
+  if (tail + lane < len) f(c0 + tail + lane, tv);
+}
+
+// The first index i >= start of a block list that warp `warp` reads: entry
+// i goes to warp i % kStepWarps, in every pass and in the tie re-read.
+__device__ __forceinline__ int first_entry(int start, int warp) {
+  return start + ((warp - start) & (kStepWarps - 1));
+}
+
+// Shared memory of verify_row: the blocks read, in order, their exact
+// maxima by block, and each ballot's counts and the warps' maxima.
+struct VerifyScratch {
+  int list[kMaxBlocks];
+  int exact[kMaxBlocks];
+  int warp_count[3][kStepWarps];
+  int warp_max[kStepWarps];
+};
+
+// The exact max count of count row `row` over its live columns [0, n), 0
+// for a row without a count; a row of more than kWholeBlocks blocks is
+// read through its block bounds `bounds` (its row of block_max) and
+// `bound`, the row's own bound (>= 1):
+//   - Block 0, which holds the byte tokens and the first merges (a row's
+//     max more often than any later block), is read by warp 0 while thread
+//     t loads the bound of live block t: one latency for both.
+//   - Where at most a block a warp of the others has a bound that reaches
+//     max(best, 1), one pass reads them all, `>=` for a tie of greater lex
+//     rank, and no unread block can then hold the max or a tie.
+//   - Else pass 1 reads every unread block whose bound reaches `bound`:
+//     under K2 row_max equals the largest of its row's block bounds (the
+//     apply raises both with the same values, and a verify tightens the
+//     row and its max's block to the same count), so these may hold it.
+//     Pass 2, only where the blocks read hold less than `bound`, reads
+//     every unread block whose bound reaches max(best, 1); after it no
+//     unread block can hold the max or a tie, so there is no pass 3.
+// A warp reads a block at a time, and every block read is tightened to its
+// exact max. *col_out gets the column with the greatest lex rank among
+// those equal to the max (0 for none): a thread loads the lex rank of its
+// own max's column as soon as its counts arrive, so a pick without ties
+// waits on no load; on a tie it re-reads its columns of the blocks that
+// hold the max, from L1, and loads lex_rank where they equal it. A block
+// max over (lex rank + 1, column) picks. *read_out gets the blocks read.
+__device__ int verify_row(const int* row, int* bounds, const int* lex_rank,
+                          int n, int bound, u64* red, VerifyScratch& vs,
+                          int* col_out, int* read_out) {
+  const int live = block_count(n);
+  if (live <= kWholeBlocks) {
+    *read_out = live;
+    return verify_whole(row, lex_rank, n, red, col_out);
+  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int m = -1, col = 0, ties = 0;  // over the columns this thread read
+  int lx = -1, lx_col = -1;       // lex_rank[lx_col], loaded ahead
+  auto load_lex = [&]() {
+    if (m > 0 && col != lx_col) {
+      lx = lex_rank[col];
+      lx_col = col;
+    }
+  };
+  // Reads block k (this warp), tightens its bound and returns its max.
+  auto read_block = [&](int k) {
+    int km = 0;
+    for_block_columns(row, k << kBlockShift, min((k + 1) << kBlockShift, n),
+                      lane, [&](int c, int v) {
+                        km = max(km, v);
+                        if (v > m) {
+                          m = v;
+                          col = c;
+                          ties = 1;
+                        } else if (v == m) {
+                          ++ties;
+                        }
+                      });
+    km = static_cast<int>(warp_max(static_cast<u64>(km)));
+    if (lane == 0) {
+      vs.exact[k] = km;
+      bounds[k] = km;
+    }
+    return km;
+  };
+  const int bnd = tid < live ? bounds[tid] : 0;
+  if (tid == 0) vs.list[0] = 0;
+  int pass_max = warp == 0 ? read_block(0) : 0;
+  load_lex();
+  if (lane == 0) vs.warp_max[warp] = pass_max;
+  __syncthreads();
+  int best = 0;
+#pragma unroll
+  for (int w = 0; w < kStepWarps; ++w) best = max(best, vs.warp_max[w]);
+  bool taken = tid == 0;  // thread t holds block t's bound
+  int total = 1;          // blocks in the list
+  // Ballot 0 counts the blocks one pass would read; ballots 1 and 2 are
+  // passes 1 and 2 where it counts more than a block a warp.
+  for (int ballot = 0, theta = max(best, 1);; ++ballot) {
+    // The blocks of this pass, appended to the list in block order.
+    const bool sel = tid < live && !taken && bnd >= theta;
+    const unsigned bal = __ballot_sync(kFullMask, sel);
+    if (lane == 0) vs.warp_count[ballot][warp] = __popc(bal);
+    __syncthreads();
+    int off = total, cnt = 0;
+#pragma unroll
+    for (int w = 0; w < kStepWarps; ++w) {
+      const int c = vs.warp_count[ballot][w];
+      off += w < warp ? c : 0;
+      cnt += c;
+    }
+    if (ballot == 0 && cnt > kStepWarps && theta < max(bound, 1)) {
+      theta = max(bound, 1);
+      continue;
+    }
+    if (cnt > 0) {
+      if (sel) {
+        vs.list[off + __popc(bal & ((1u << lane) - 1))] = tid;
+        taken = true;
+      }
+      __syncthreads();
+      pass_max = 0;
+      for (int i = first_entry(total, warp); i < total + cnt; i += kStepWarps)
+        pass_max = max(pass_max, read_block(vs.list[i]));
+      load_lex();
+      if (lane == 0) vs.warp_max[warp] = pass_max;
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < kStepWarps; ++w) best = max(best, vs.warp_max[w]);
+      total += cnt;
+    }
+    const int next = max(best, 1);
+    if (next >= theta) break;
+    theta = next;
+  }
+  *read_out = total;
+  *col_out = 0;
+  if (best <= 0) return 0;
+  int l = -1;
+  if (m == best) {
+    if (ties == 1) {
+      l = lx;
+    } else {
+      for (int i = first_entry(0, warp); i < total; i += kStepWarps) {
+        const int k = vs.list[i];
+        if (vs.exact[k] != best) continue;
+        for_block_columns(row, k << kBlockShift, min((k + 1) << kBlockShift, n),
+                          lane, [&](int c, int v) {
+                            if (v == best) {
+                              const int x = lex_rank[c];
+                              if (x > l) {
+                                l = x;
+                                col = c;
+                              }
+                            }
+                          });
+      }
+    }
+  }
+  const u64 pick = reduce_max(
       l < 0 ? 0ull
             : (static_cast<u64>(l + 1) << 32) | static_cast<unsigned>(col),
       red);
@@ -348,11 +575,12 @@ __device__ __forceinline__ int compare_token(const int4* row, int4 v,
 
 // One merge step but its apply, in one cluster (the note at the top).
 // With `out` set it runs the select alone and writes kNumOut ints there,
-// (a, b, count, rounds, rows verified, CTAs) with a = b = -1 and count 0
-// for a stop, and leaves scalars, stats and the vocab as they are. A step
-// below `replay_until` replays its record (the note at the top).
+// (a, b, count, rounds, rows verified, CTAs, blocks read) with a = b = -1
+// and count 0 for a stop, and leaves scalars, stats and the vocab as they
+// are. A step below `replay_until` replays its record (the note at the
+// top).
 __global__ void __launch_bounds__(kStepThreads, 1)
-    step_kernel(const int* counts, int* row_max, int* lex_rank,
+    step_kernel(const int* counts, int* row_max, int* block_max, int* lex_rank,
                 int* token_bytes, int* token_len, int* merges, int* scalars,
                 int* stats, int* out, int V, int L, int step,
                 int min_frequency, int replay_until) {
@@ -360,6 +588,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   __shared__ u64 red[66];
   __shared__ u64 pub_top1, pub_top2, pub_exact;
   __shared__ int pub_col, pub_nless, pub_eq, s_nless, s_eq;
+  __shared__ VerifyScratch vs;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int ctas = static_cast<int>(cluster.num_blocks());
@@ -384,6 +613,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   // data, so control flow, and every cluster barrier, is uniform.
   u64 best = 0;  // the best exact key verified so far
   int best_row = 0, best_col = 0, rounds = 0, verified = 0;
+  int blocks = 0;  // read by this CTA's verifies
   bool stop = false;
   const bool replay = step < replay_until;
   int a = 0, b = 0;
@@ -450,9 +680,12 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       if (mine > best && row_key_count(mine) > 0) {
         const int slot = row_key_slot(mine);
         const int r = lo + slot;
-        int col;
-        const int m = verify_row(counts + static_cast<size_t>(r) * V,
-                                 lex_rank, n, red, &col);
+        int col, read;
+        const int m = verify_row(
+            counts + static_cast<size_t>(r) * V,
+            block_max + static_cast<size_t>(r) * block_count(V), lex_rank, n,
+            row_key_count(mine), red, vs, &col, &read);
+        blocks += read;
         if (tid == 0) {
           const u64 exact = row_key_with_count(mine, m);
           row_max[r] = m;
@@ -495,6 +728,9 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     if (!stop && row_key_count(best) < thr) stop = true;
     a = best_row;
     b = best_col;
+    // Each CTA adds its own blocks: no exchange on the rounds' path.
+    if (tid == 0 && blocks != 0)
+      atomicAdd(out != nullptr ? &out[kOutBlocks] : &stats[kBlocksRead], blocks);
   }
 
   if (out != nullptr || stop) {
@@ -640,8 +876,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
 // window are folded into the table: old pairs -freq, new pairs +freq.
 __global__ void __launch_bounds__(kApplyThreads)
     apply_kernel(int* __restrict__ words, const int* __restrict__ freqs,
-                 int* counts, int* row_max, const int* scalars, int N, int W,
-                 int V) {
+                 int* counts, int* row_max, int* block_max, const int* scalars,
+                 int N, int W, int V) {
   wait_prior_grid();
   launch_next_grid();
   if (scalars[kStopped]) return;
@@ -650,7 +886,7 @@ __global__ void __launch_bounds__(kApplyThreads)
   const int a = scalars[kSelA], b = scalars[kSelB];
   int* w = words + static_cast<size_t>(i) * W;
   if (!yabpe::word_has_pair(w, W, a, b)) return;
-  yabpe::TableSink sink{counts, V, row_max};
+  yabpe::TableSink sink{counts, V, row_max, block_max};
   yabpe::merge_word(w, W, freqs[i], a, b, scalars[kSelC], sink);
 }
 
@@ -698,7 +934,8 @@ cudaError_t pick_cluster(int V, int L, int* ctas_out, size_t* smem_out) {
 }
 
 cudaError_t launch_step(int ctas, size_t smem, cudaStream_t st,
-                        const int* counts, int* row_max, int* lex_rank,
+                        const int* counts, int* row_max, int* block_max,
+                        int* lex_rank,
                         int* token_bytes, int* token_len, int* merges,
                         int* scalars, int* stats, int* out, int V, int L,
                         int step, int min_frequency, int replay_until) {
@@ -716,14 +953,15 @@ cudaError_t launch_step(int ctas, size_t smem, cudaStream_t st,
   attrs[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attrs;
   cfg.numAttrs = 2;
-  return cudaLaunchKernelEx(&cfg, step_kernel, counts, row_max, lex_rank,
-                            token_bytes, token_len, merges, scalars, stats,
+  return cudaLaunchKernelEx(&cfg, step_kernel, counts, row_max, block_max,
+                            lex_rank, token_bytes, token_len, merges, scalars, stats,
                             out, V, L, step, min_frequency, replay_until);
 }
 
 cudaError_t launch_apply(int n_blocks, cudaStream_t st, int* words,
                          const int* freqs, int* counts, int* row_max,
-                         const int* scalars, int N, int W, int V) {
+                         int* block_max, const int* scalars, int N, int W,
+                         int V) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_blocks);
   cfg.blockDim = dim3(kApplyThreads);
@@ -734,7 +972,7 @@ cudaError_t launch_apply(int n_blocks, cudaStream_t st, int* words,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, apply_kernel, words, freqs, counts,
-                            row_max, scalars, N, W, V);
+                            row_max, block_max, scalars, N, W, V);
 }
 
 }  // namespace
@@ -742,6 +980,8 @@ cudaError_t launch_apply(int n_blocks, cudaStream_t st, int* words,
 extern "C" int yabpe_hbm_max_width() { return kMaxWidth; }
 
 extern "C" int yabpe_hbm_max_vocab() { return kRowKeyMaxVocab; }
+
+extern "C" int yabpe_hbm_block_cols() { return kBlockCols; }
 
 extern "C" const char* yabpe_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -760,7 +1000,7 @@ extern "C" int yabpe_hbm_cluster_ctas(int V, int L) {
 // the steps below `replay_until` replay their rows of `merges`. Returns the
 // first launch error (a cudaError_t), 0 when all launched.
 extern "C" int yabpe_hbm_merge_chunk(
-    int* words, const int* freqs, int* counts, int* row_max,
+    int* words, const int* freqs, int* counts, int* row_max, int* block_max,
     int* token_bytes, int* token_len, int* lex_rank, int* merges,
     int* scalars, int* stats, int N, int W, int V, int L, int step_begin,
     int step_end, int min_frequency, int replay_until, void* stream) {
@@ -774,23 +1014,25 @@ extern "C" int yabpe_hbm_merge_chunk(
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_blocks = (N + kApplyThreads - 1) / kApplyThreads;
   for (int step = step_begin; step < step_end; ++step) {
-    err = launch_step(ctas, smem, st, counts, row_max, lex_rank, token_bytes,
-                      token_len, merges, scalars, stats, nullptr, V, L, step,
-                      min_frequency, replay_until);
+    err = launch_step(ctas, smem, st, counts, row_max, block_max, lex_rank,
+                      token_bytes, token_len, merges, scalars, stats, nullptr,
+                      V, L, step, min_frequency, replay_until);
     if (err == cudaSuccess && n_blocks > 0)
-      err = launch_apply(n_blocks, st, words, freqs, counts, row_max, scalars,
-                         N, W, V);
+      err = launch_apply(n_blocks, st, words, freqs, counts, row_max,
+                         block_max, scalars, N, W, V);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The step kernel's select alone, on `stream`, without syncing: reads
-// next_id from scalars (stopped must be 0), tightens row_max as a step
-// does, and writes (a, b, count, rounds, rows verified, CTAs) to out[6].
+// next_id from scalars (stopped must be 0), tightens row_max and
+// block_max as a step does, and writes (a, b, count, rounds, rows
+// verified, CTAs, blocks read) to out[7].
 extern "C" int yabpe_hbm_select(const int* counts, int* row_max,
-                                int* lex_rank, int* scalars, int* out, int V,
-                                int min_frequency, void* stream) {
+                                int* block_max, int* lex_rank, int* scalars,
+                                int* out, int V, int min_frequency,
+                                void* stream) {
   if (V > kRowKeyMaxVocab || V < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int ctas = 0;
@@ -798,7 +1040,7 @@ extern "C" int yabpe_hbm_select(const int* counts, int* row_max,
   cudaError_t err = pick_cluster(V, 4, &ctas, &smem);
   if (err == cudaSuccess)
     err = launch_step(ctas, smem, static_cast<cudaStream_t>(stream), counts,
-                      row_max, lex_rank, nullptr, nullptr, nullptr, scalars,
-                      nullptr, out, V, 4, 0, min_frequency, 0);
+                      row_max, block_max, lex_rank, nullptr, nullptr, nullptr,
+                      scalars, nullptr, out, V, 4, 0, min_frequency, 0);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -33,6 +33,16 @@ namespace yabpe {
 
 constexpr int kMaxWidth = 64;  // longest word the apply step takes
 
+// Columns of a count row per block of K2's block bounds (hbm_loop.cu):
+// 4 KB of a row, one int4 load a thread of a 256-thread CTA.
+constexpr int kBlockShift = 10;
+constexpr int kBlockCols = 1 << kBlockShift;
+
+// Column blocks of a [V, V] count row: the width of the block bounds.
+__host__ __device__ __forceinline__ int block_count(int V) {
+  return (V + kBlockCols - 1) >> kBlockShift;
+}
+
 // True when the word holds the adjacent pair (a, b).
 __device__ __forceinline__ bool word_has_pair(const int* w, int W, int a,
                                               int b) {
@@ -47,11 +57,14 @@ __device__ __forceinline__ bool word_has_pair(const int* w, int W, int a,
 }
 
 // Folds cells into the [V, V] count table. `row_max`, when not null, is an
-// upper bound on each row's max count, raised by every positive delta.
+// upper bound on each row's max count, and `block_max` [V, block_count(V)],
+// when not null, one on the max of each block of kBlockCols columns of a
+// row; every positive delta raises both.
 struct TableSink {
   int* counts;
   int V;
   int* row_max;
+  int* block_max;
 
   __device__ __forceinline__ void reserve(int) {}
   __device__ __forceinline__ void sub(int l, int r, int f) {
@@ -61,6 +74,9 @@ struct TableSink {
   __device__ __forceinline__ void add(int l, int r, int f) {
     const int old = atomicAdd(&counts[static_cast<size_t>(l) * V + r], f);
     if (row_max != nullptr) atomicMax(&row_max[l], old + f);
+    if (block_max != nullptr)
+      atomicMax(&block_max[static_cast<size_t>(l) * block_count(V) + (r >> kBlockShift)],
+                old + f);
   }
 };
 

@@ -22,10 +22,11 @@ The parts that live here:
   ``kernels/fused_loop.py``), selects by an exact max over the whole
   table (:func:`exact_select`), applies merges with tensor ops and folds
   full-word deltas with ``index_add_``; then it recomputes ``row_max``
-  exactly;
+  and ``block_max`` exactly;
 - :func:`cluster_select_reference`, the kernel's select round by round
-  in torch (striped candidates, several verified per round, the
-  acceptance rule, ``row_max`` tightened), and :func:`hbm_select_step`,
+  in torch (striped candidates, several verified per round, each
+  verified row read through its block bounds, the acceptance rule,
+  ``row_max`` and the blocks read tightened), and :func:`hbm_select_step`,
   which runs the kernel's select alone on the card. Tests hold the two
   to each other and the model to :func:`exact_select`; neither is on the
   training path.
@@ -67,7 +68,8 @@ STAT_NS_STEP = 6  # the whole step kernel
 STAT_NS_BARRIER = 7  # the first round's first cluster barrier alone
 STAT_REPLAYED = 8  # replayed steps, which add to none of the slots above
 STAT_NS_REPLAY = 9  # the step kernel of the replayed steps, whole
-N_STATS = 10
+STAT_BLOCKS_READ = 10  # column blocks the select's verifies read in full
+N_STATS = 11
 
 #: Longest word (in symbols) the apply kernel of K2 (and K3) takes.
 MAX_WORD_WIDTH = 64
@@ -85,6 +87,23 @@ _ROW_COUNT_SHIFT = 33
 #: CTAs in the select's thread-block cluster where a cluster of 16 fits.
 CLUSTER_CTAS = 16
 
+#: Columns of a count row per block of ``HbmState.block_max``
+#: (csrc/merge_apply.cuh's kBlockCols): 4 KB of a row.
+BLOCK_COLS = 1024
+
+#: Warps of the step kernel's CTA: a verify reads at most this many blocks
+#: in one pass without first looking for the row's bound.
+VERIFY_WARPS = 8
+
+#: Rows of at most this many blocks are verified whole, their block bounds
+#: neither read nor tightened (csrc/hbm_loop.cu's kWholeBlocks: one 32 KB
+#: batch of the whole-row read).
+WHOLE_ROW_BLOCKS = 8
+
+#: ``yabpe_hbm_select``'s output: (a, b, count, rounds, rows verified,
+#: CTAs, blocks read).
+_N_OUT = 7
+
 #: Kernel launches by wrapper; a caller zeroes an entry to count a run.
 LAUNCHES: dict[str, int] = {"hbm_merge_chunk": 0, "hbm_select_step": 0}
 
@@ -99,22 +118,26 @@ class HbmState:
         counts: [V, V] exact pair counts.
         row_max: [V] upper bound on each row's max count (exact after a
             twin chunk).
+        block_max: [V, block_count(V)] upper bound on the max count of
+            each block of BLOCK_COLS columns of a row (exact after a twin
+            chunk).
         token_bytes: [V, L] token byte strings, -1 padded.
         token_len: [V] token byte lengths.
         lex_rank: [V] dense lex rank among live tokens, -1 for free ids.
         merges: [M, 3] (left, right, new id) per step, -1 where not taken.
         scalars: [8] next_id, stopped, num_done, then per-step temporaries
             and ``DIVERGED``.
-        stats: [10] the kernel's counters (verify rounds, rows verified,
+        stats: [11] the kernel's counters (verify rounds, rows verified,
             the step kernel's nanoseconds by phase, the replayed steps and
-            their nanoseconds: ``STAT_*``); the twin leaves them as they
-            are.
+            their nanoseconds, the blocks the verifies read: ``STAT_*``);
+            the twin leaves them as they are.
     """
 
     words: torch.Tensor
     freqs: torch.Tensor
     counts: torch.Tensor
     row_max: torch.Tensor
+    block_max: torch.Tensor
     token_bytes: torch.Tensor
     token_len: torch.Tensor
     lex_rank: torch.Tensor
@@ -133,6 +156,20 @@ class HbmState:
         check_state(self)
 
 
+def block_count(vocab_cap: int) -> int:
+    """Column blocks of a count row: the width of ``HbmState.block_max``."""
+    return -(-vocab_cap // BLOCK_COLS)
+
+
+def exact_block_max(counts: torch.Tensor, block_cols: int = BLOCK_COLS) -> torch.Tensor:
+    """[V, ceil(V / block_cols)] int32: the exact max count of each block of
+    ``block_cols`` columns of each row of ``counts``."""
+    v = counts.shape[1]
+    return torch.stack(
+        [counts[:, k:k + block_cols].amax(dim=1) for k in range(0, v, block_cols)], dim=1
+    ).contiguous()
+
+
 def check_state(state) -> None:
     """Raise ValueError unless a merge-loop state (this module's
     :class:`HbmState` or ``kernels.fused_loop.FusedState``) has the
@@ -144,6 +181,7 @@ def check_state(state) -> None:
     v = state.counts.shape[0]
     shapes = {
         "freqs": (n,), "counts": (v, v), "row_max": (v,),
+        "block_max": (v, block_count(v)),
         "token_len": (v,), "lex_rank": (v,), "scalars": (N_SCALARS,),
         "stats": (N_STATS,),
     }
@@ -264,24 +302,34 @@ def hbm_select_step(
     *,
     next_id: int,
     min_frequency: int,
+    block_max: torch.Tensor | None = None,
+    tally: dict[str, int] | None = None,
 ) -> tuple[int, int, int, int, int]:
     """One select of the merge step, for tests: the pair (a, b) with the
     highest count among the live ids [0, next_id), ties to the greatest
     lex rank of the row, then of the column.
 
-    Tightens ``row_max`` in place as a step does and returns (a, b,
-    count, verify rounds, CTAs); a = b = -1 and count 0 when no count
-    reaches ``max(min_frequency, 1)``. CUDA tensors go through the step
-    kernel's select (one launch, then a sync to read the result); CPU
-    tensors through :func:`cluster_select_reference` with
-    :data:`CLUSTER_CTAS` stripes.
+    ``block_max`` [V, block_count(V)] bounds each row's column blocks
+    (:class:`HbmState`); without it the exact block maxima of ``counts``
+    are used. Tightens ``row_max`` and the blocks it reads in place as a
+    step does and returns (a, b, count, verify rounds, CTAs); a = b = -1
+    and count 0 when no count reaches ``max(min_frequency, 1)``.
+    ``tally``, when given, accumulates the blocks read under
+    ``blocks_read``. CUDA tensors go through the step kernel's select (one
+    launch, then a sync to read the result); CPU tensors through
+    :func:`cluster_select_reference` with :data:`CLUSTER_CTAS` stripes.
     """
     v = counts.shape[0]
-    for name, t in (("counts", counts), ("row_max", row_max), ("lex_rank", lex_rank)):
+    if block_max is None:
+        block_max = exact_block_max(counts)
+    for name, t in (("counts", counts), ("row_max", row_max), ("lex_rank", lex_rank),
+                    ("block_max", block_max)):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != counts.device:
             raise ValueError(f"{name} must be contiguous int32 on the device of counts")
     if counts.shape != (v, v) or row_max.shape != (v,) or lex_rank.shape != (v,):
         raise ValueError("counts must be [V, V], row_max and lex_rank [V]")
+    if block_max.shape != (v, block_count(v)):
+        raise ValueError(f"block_max must be [V, {block_count(v)}]")
     if not 0 < next_id <= v:
         raise ValueError(f"next_id {next_id} outside (0, {v}]")
     device = counts.device
@@ -289,6 +337,7 @@ def hbm_select_step(
         return (*cluster_select_reference(
             counts, row_max, lex_rank, next_id=next_id,
             min_frequency=min_frequency, cluster=CLUSTER_CTAS,
+            block_max=block_max, tally=tally,
         ), CLUSTER_CTAS)
     if device.type != "cuda":
         raise ValueError(f"hbm_select_step runs on cuda or cpu, not {device}")
@@ -296,16 +345,19 @@ def hbm_select_step(
     lib = _library()
     scalars = torch.zeros(N_SCALARS, dtype=torch.int32, device=device)
     scalars[NEXT_ID] = next_id
-    out = torch.zeros(6, dtype=torch.int32, device=device)
+    out = torch.zeros(_N_OUT, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.yabpe_hbm_select(
-            counts.data_ptr(), row_max.data_ptr(), lex_rank.data_ptr(),
-            scalars.data_ptr(), out.data_ptr(), v, min_frequency, stream,
+            counts.data_ptr(), row_max.data_ptr(), block_max.data_ptr(),
+            lex_rank.data_ptr(), scalars.data_ptr(), out.data_ptr(), v,
+            min_frequency, stream,
         )
     _raise_on_error(lib, rc, "hbm_select_step")
     LAUNCHES["hbm_select_step"] += 1
-    a, b, count, rounds, _, ctas = out.tolist()
+    a, b, count, rounds, _, ctas, blocks = out.tolist()
+    if tally is not None:
+        tally["blocks_read"] = tally.get("blocks_read", 0) + blocks
     return a, b, count, rounds, ctas
 
 
@@ -316,7 +368,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("hbm_loop")
     lib.yabpe_hbm_merge_chunk.restype = ctypes.c_int
     lib.yabpe_hbm_merge_chunk.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     )
     lib.yabpe_cuda_error_string.restype = ctypes.c_char_p
     lib.yabpe_cuda_error_string.argtypes = [ctypes.c_int]
@@ -325,13 +377,17 @@ def _library() -> ctypes.CDLL:
     lib.yabpe_hbm_cluster_ctas.restype = ctypes.c_int
     lib.yabpe_hbm_cluster_ctas.argtypes = [ctypes.c_int] * 2
     lib.yabpe_hbm_select.restype = ctypes.c_int
-    lib.yabpe_hbm_select.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.yabpe_hbm_select.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.yabpe_hbm_max_vocab.restype = ctypes.c_int
     lib.yabpe_hbm_max_vocab.argtypes = []
+    lib.yabpe_hbm_block_cols.restype = ctypes.c_int
+    lib.yabpe_hbm_block_cols.argtypes = []
     if lib.yabpe_hbm_max_width() != MAX_WORD_WIDTH:
         raise RuntimeError("csrc/hbm_loop.cu disagrees on MAX_WORD_WIDTH")
     if lib.yabpe_hbm_max_vocab() != MAX_VOCAB_CAP:
         raise RuntimeError("csrc/hbm_loop.cu disagrees on MAX_VOCAB_CAP")
+    if lib.yabpe_hbm_block_cols() != BLOCK_COLS:
+        raise RuntimeError("csrc/hbm_loop.cu disagrees on BLOCK_COLS")
     return lib
 
 
@@ -347,7 +403,7 @@ def hbm_merge_chunk_reference(
 ) -> None:
     """The plain twin of :func:`hbm_merge_chunk`, in torch ops on any
     device; updates ``state`` in place: :func:`plain_merge_steps`, then
-    ``row_max`` recomputed exactly."""
+    ``row_max`` and ``block_max`` recomputed exactly."""
     plain_merge_steps(
         state,
         chunk_start=chunk_start,
@@ -358,6 +414,7 @@ def hbm_merge_chunk_reference(
         tally=tally,
     )
     state.row_max.copy_(state.counts.amax(dim=1))
+    state.block_max.copy_(exact_block_max(state.counts))
 
 
 def plain_merge_steps(
@@ -492,6 +549,9 @@ def cluster_select_reference(
     next_id: int,
     min_frequency: int,
     cluster: int = CLUSTER_CTAS,
+    block_max: torch.Tensor | None = None,
+    block_cols: int = BLOCK_COLS,
+    tally: dict[str, int] | None = None,
 ) -> tuple[int, int, int, int]:
     """The select of csrc/hbm_loop.cu's step kernel, round by round, in
     torch: a model of the kernel for tests, not a twin of the step.
@@ -502,9 +562,17 @@ def cluster_select_reference(
     slot in the stripe: :func:`_pack_key`) of each of ``cluster`` row
     stripes, stops when no bound reaches ``max(min_frequency, 1)``, and
     verifies each stripe's top row whose key beats the best exact key so
-    far: its exact max over the live columns tightens ``row_max`` in place. The best exact key is accepted
-    when it is at least every bound key of a row not verified in the
-    round (a verified stripe's second key, another stripe's top key).
+    far: its exact max over the live columns tightens ``row_max`` in
+    place. The best exact key is accepted when it is at least every bound
+    key of a row not verified in the round (a verified stripe's second
+    key, another stripe's top key).
+
+    With ``block_max`` (upper bounds on the max of each block of
+    ``block_cols`` columns of a row, stale blocks allowed) a row is
+    verified as the kernel's verify_row does it (:func:`_verify_blocks`),
+    and the blocks it reads are tightened in place; without it the whole
+    row is read (K1's select). ``tally``, when given, accumulates the
+    blocks read under ``blocks_read``.
 
     Returns (a, b, count, rounds): the pair and its count, the column
     the greatest lex rank among the row's columns equal to the count; a
@@ -536,17 +604,67 @@ def cluster_select_reference(
                 unverified = max(unverified, t1)
         for r, t1 in verified:
             row = counts[r, :n]
-            m = int(row.max())
+            if block_max is None:
+                m = int(row.max())
+                col = int(torch.where(row == m, lex, -1).argmax())
+            else:
+                m, col, read = _verify_blocks(
+                    row, block_max[r], _key_count(t1), lex, block_cols
+                )
+                if tally is not None:
+                    tally["blocks_read"] = tally.get("blocks_read", 0) + read
             row_max[r] = m
             exact = (m << _ROW_COUNT_SHIFT) | (t1 & low)
             if exact > best:
-                best, best_row = exact, r
-                best_col = int(torch.where(row == m, lex, -1).argmax())
+                best, best_row, best_col = exact, r, col
         if best >= unverified:
             break
     if _key_count(best) < thr:
         return -1, -1, 0, rounds
     return best_row, best_col, _key_count(best), rounds
+
+
+def _verify_blocks(
+    row: torch.Tensor, bounds: torch.Tensor, bound: int, lex: torch.Tensor,
+    block_cols: int,
+) -> tuple[int, int, int]:
+    """(max, column, blocks read) of a count row's live columns ``row``
+    [n], as csrc/hbm_loop.cu's verify_row finds them through the row's
+    block bounds ``bounds`` and its own ``bound``. A row of at most
+    :data:`WHOLE_ROW_BLOCKS` blocks is read whole, its bounds untouched.
+    Else block 0 is read first; where at most :data:`VERIFY_WARPS` other
+    live blocks have a bound that reaches max(block 0's max, 1), one pass
+    reads them; else pass 1 reads each unread block whose bound reaches
+    ``bound`` and, where the blocks read hold less, pass 2 every unread
+    block whose bound reaches max(best, 1). Each block read is tightened in
+    ``bounds`` to its exact max. The column is the greatest lex rank among
+    the read columns equal to the max (0 for a row without a count)."""
+    n = row.shape[0]
+    live = -(-n // block_cols)
+    if live <= WHOLE_ROW_BLOCKS:
+        m = int(row.max())
+        return m, int(torch.where(row == m, lex, -1).argmax()) if m > 0 else 0, live
+    before = bounds[:live].clone()
+    taken = torch.zeros(live, dtype=torch.bool, device=row.device)
+    taken[0] = True
+    bounds[0] = best = int(row[:block_cols].max())
+    theta = max(best, 1)
+    if int((before >= theta)[1:].sum()) > VERIFY_WARPS and theta < max(bound, 1):
+        theta = max(bound, 1)
+    while True:
+        chosen = ~taken & (before >= theta)
+        for k in chosen.nonzero()[:, 0].tolist():
+            bounds[k] = m = int(row[k * block_cols:(k + 1) * block_cols].max())
+            best = max(best, m)
+        taken |= chosen
+        if max(best, 1) >= theta:
+            break
+        theta = max(best, 1)
+    if best <= 0:
+        return 0, 0, int(taken.sum())
+    read = taken.repeat_interleave(block_cols)[:n]
+    col = int(torch.where(read & (row == best), lex, -1).argmax())
+    return best, col, int(taken.sum())
 
 
 def _pairs(words: torch.Tensor, freqs: torch.Tensor, mask: torch.Tensor | None = None):

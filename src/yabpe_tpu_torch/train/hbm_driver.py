@@ -20,7 +20,8 @@ not fit the device's free memory raises on every route
 The initial pair counts are a [b0, b0] corner (every initial symbol is a
 byte or special id below b0), computed with one numpy bincount and placed
 into a device-zeroed [V, V] table, so no [V, V] array crosses from the
-host.
+host; the corner's block maxima go into a device-zeroed ``block_max``
+likewise.
 """
 
 from __future__ import annotations
@@ -32,12 +33,14 @@ from yabpe_tpu_torch.core import lexkey
 from yabpe_tpu_torch.core.vocab import Vocab
 from yabpe_tpu_torch.core.wordtable import WordTable
 from yabpe_tpu_torch.kernels.hbm_loop import (
+    BLOCK_COLS,
     MAX_VOCAB_CAP,
     MAX_WORD_WIDTH,
     N_SCALARS,
     N_STATS,
     NEXT_ID,
     NUM_DONE,
+    STAT_BLOCKS_READ,
     STAT_NS_BOUND,
     STAT_NS_COMPARE,
     STAT_NS_VERIFY,
@@ -46,6 +49,7 @@ from yabpe_tpu_torch.kernels.hbm_loop import (
     STAT_VERIFIED,
     STOPPED,
     HbmState,
+    block_count,
     hbm_merge_chunk,
     raise_on_divergence,
 )
@@ -88,10 +92,12 @@ def initial_corner_counts(
 
 def state_bytes(n_words: int, width: int, vocab_cap: int, token_width: int,
                 num_merges: int) -> int:
-    """Device bytes of the kernel state."""
+    """Device bytes of the kernel state, the block bounds included (the
+    engines, which the trainer checks with it too, have none: a tenth of
+    a percent of the table)."""
     v = vocab_cap
     return 4 * (
-        n_words * (width + 1) + v * v + v * (token_width + 3)
+        n_words * (width + 1) + v * v + v * block_count(v) + v * (token_width + 3)
         + 3 * max(num_merges, 1) + N_SCALARS + N_STATS
     )
 
@@ -187,6 +193,11 @@ def state_from_numpy(
     counts[:b0, :b0] = put(corner)
     row_max = np.zeros(v, dtype=np.int32)
     row_max[:b0] = corner.max(axis=1, initial=0)
+    block_max = torch.zeros((v, block_count(v)), dtype=torch.int32, device=device)
+    if b0:
+        block_max[:b0, :block_count(b0)] = put(np.stack(
+            [corner[:, k:k + BLOCK_COLS].max(axis=1) for k in range(0, b0, BLOCK_COLS)], axis=1
+        ))
     scalars = np.zeros(N_SCALARS, dtype=np.int32)
     scalars[NEXT_ID] = b0
     return HbmState(
@@ -194,6 +205,7 @@ def state_from_numpy(
         freqs=put(freqs),
         counts=counts,
         row_max=put(row_max),
+        block_max=block_max,
         token_bytes=put(token_bytes),
         token_len=put(token_len),
         lex_rank=put(lex_rank),
@@ -265,8 +277,9 @@ def run_chunks(
 
     While the tracer is on (utils/profiling.py), each chunk is a span and,
     for K2 on the card, the chunk's sync also reads ``state.stats`` into
-    the counters ``k2.steps``, ``k2.rows_verified``, ``k2.select_ns``,
-    ``k2.bound_ns`` and ``k2.vocab_ns`` (:func:`k2_counters`); off, it
+    the counters ``k2.steps``, ``k2.rows_verified``, ``k2.blocks_read``,
+    ``k2.select_ns``, ``k2.bound_ns`` and ``k2.vocab_ns``
+    (:func:`k2_counters`); off, it
     reads nothing more. The twin leaves
     ``stats`` alone, so on the CPU there are no such counters."""
     chunk = max(1, min(chunk_size, num_merges))
@@ -309,7 +322,8 @@ def k2_counters(before: tuple[list[int], list[int]],
                 after: tuple[list[int], list[int]]) -> dict[str, int]:
     """K2's counters over a stretch of steps, from ``(scalars, stats)`` read
     before and after it: live steps (merges done less replayed steps), the
-    rows the select verified, and nanoseconds of the step kernel's phases
+    rows the select verified, the column blocks those verifies read in
+    full, and nanoseconds of the step kernel's phases
     whose work grows with the vocabulary: the select (bound passes and
     verifies), the bound passes alone, and the vocab phases (the dedup
     compare and lex-rank insertion, then the vocab update and the record).
@@ -323,6 +337,7 @@ def k2_counters(before: tuple[list[int], list[int]],
     return {
         "k2.steps": s1[NUM_DONE] - s0[NUM_DONE] - diff(STAT_REPLAYED),
         "k2.rows_verified": diff(STAT_VERIFIED),
+        "k2.blocks_read": diff(STAT_BLOCKS_READ),
         "k2.select_ns": diff(STAT_NS_BOUND) + diff(STAT_NS_VERIFY),
         "k2.bound_ns": diff(STAT_NS_BOUND),
         "k2.vocab_ns": diff(STAT_NS_COMPARE) + diff(STAT_NS_VOCAB),

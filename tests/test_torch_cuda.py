@@ -117,6 +117,8 @@ def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fuse
             assert torch.equal(getattr(kern, name), getattr(twin, name)), (name, start)
         assert torch.equal(kern.scalars[:3], twin.scalars[:3]), start
         assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
+        if not fused:
+            assert bool((kern.block_max >= hbm_loop.exact_block_max(kern.counts)).all()), start
     return kern
 
 
@@ -126,6 +128,69 @@ def test_kernel_matches_twin_large_txt(vocab_cap, min_freq, chunk):
     _need_cuda()
     table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
     _kernel_vs_twin(table, SPECIALS, vocab_cap, min_freq, chunk)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_across_column_blocks():
+    """K2 against its twin at V = 12,000 (twelve column blocks a row) over
+    the realistic 5 MB corpus, whose 11,743 merges fill every block, so the
+    last ~3,800 steps verify rows past WHOLE_ROW_BLOCKS through their block
+    bounds: the state equal after every chunk and block_max a bound on
+    every block; the verifies read fewer blocks than whole rows would."""
+    _need_cuda()
+    corpus = Path(__file__).resolve().parent / "fixtures_gpt2" / "bench_5M_realistic.txt"
+    table = WordTable.from_counter(count_pretokens([corpus], SPECIALS))
+    kern = _kernel_vs_twin(table, SPECIALS, 12_000, 1, 1024)
+    steps = int(kern.scalars[hbm_loop.NUM_DONE])
+    assert steps == 12_000 - 257
+    rows, blocks = (int(kern.stats[i]) for i in (hbm_loop.STAT_VERIFIED, hbm_loop.STAT_BLOCKS_READ))
+    assert rows <= blocks < 12 * rows
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_at_a_100k_wide_vocab():
+    """K2 against its twin at V = 100,001 (rows of 98 blocks, each row
+    misaligned to 16 bytes) over large.txt's few words, its 447 merges:
+    the kernel runs first, chunk by chunk, with block_max a bound on every
+    block; then the twin from the same start (the two 40 GB tables do not
+    fit on the card together) must give the same words, vocab, record and
+    counts after every chunk."""
+    _need_cuda()
+    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+    base = list(Vocab.base(SPECIALS).tokens())
+    v, chunk = 100_001, 128
+    num = 447
+    small = ("words", "merges", "token_bytes", "token_len", "lex_rank")
+
+    def snapshot(state):
+        n = int(state.scalars[hbm_loop.NEXT_ID])
+        live = state.counts[:n, :n].cpu()
+        assert int(state.counts[n:].amax()) == int(state.counts[:n, n:].amax()) == 0
+        return {**{k: getattr(state, k).cpu() for k in small},
+                "live": live, "scalars": state.scalars[:3].cpu()}
+
+    kern = hbm_driver.state_from_numpy(table.words, table.freqs, base, v, "cuda", num_merges=num)
+    assert tuple(kern.block_max.shape) == (v, 98)
+    want = []
+    for start in range(0, num, chunk):
+        hbm_loop.hbm_merge_chunk(kern, chunk_start=start, chunk_size=chunk, num_merges=num,
+                                 min_frequency=1)
+        torch.cuda.synchronize()
+        assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
+        assert bool((kern.block_max >= hbm_loop.exact_block_max(kern.counts)).all()), start
+        want.append(snapshot(kern))
+    assert int(kern.scalars[hbm_loop.NUM_DONE]) == num
+    del kern
+    torch.cuda.empty_cache()
+    twin = hbm_driver.state_from_numpy(table.words, table.freqs, base, v, "cuda", num_merges=num)
+    for i, start in enumerate(range(0, num, chunk)):
+        hbm_loop.hbm_merge_chunk_reference(twin, chunk_start=start, chunk_size=chunk,
+                                           num_merges=num, min_frequency=1)
+        got = snapshot(twin)
+        for name, t in want[i].items():
+            assert torch.equal(got[name], t), (name, start)
+    del twin
+    torch.cuda.empty_cache()
 
 
 def _random_table(seed: int) -> WordTable:
@@ -276,6 +341,43 @@ def test_kernel_select_matches_model(name, seed):
     )
     assert (a, b, count, rounds) == want
     assert torch.equal(dev[1].cpu(), model_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,seed", [("wide", s) for s in range(3)] + [(c, 1) for c in SELECT_CASES[:-1]]
+)
+def test_kernel_select_with_stale_block_bounds_matches_model(name, seed):
+    """The step kernel's select under stale block bounds (a third of the
+    blocks above their exact max, row_max at least its largest block bound)
+    against cluster_select_reference with the same bounds: the same pair,
+    count and rounds, the same tightened row_max and block_max, and the same
+    number of blocks read. "wide" rows span 13 blocks."""
+    _need_cuda()
+    counts, row_max, lex, n, min_freq = select_state(name, seed)
+    rng = np.random.default_rng(seed + 200)
+    blocks = hbm_loop.exact_block_max(counts)
+    stale = torch.from_numpy(rng.random(tuple(blocks.shape)) < 0.3)
+    noise = rng.integers(1, 4, tuple(blocks.shape)).astype(np.int32)
+    blocks[stale] += torch.from_numpy(noise)[stale]
+    blocks[n:] = 0
+    row_max = torch.maximum(row_max, blocks.amax(dim=1))
+    model_max, model_blocks = row_max.clone(), blocks.clone()
+    dev = [t.cuda() for t in (counts, row_max, lex, blocks)]
+    tally: dict[str, int] = {}
+    a, b, count, rounds, ctas = hbm_loop.hbm_select_step(
+        *dev[:3], next_id=n, min_frequency=min_freq, block_max=dev[3], tally=tally
+    )
+    model_tally: dict[str, int] = {}
+    want = hbm_loop.cluster_select_reference(
+        counts, model_max, lex, next_id=n, min_frequency=min_freq, cluster=ctas,
+        block_max=model_blocks, tally=model_tally,
+    )
+    assert (a, b, count, rounds) == want
+    assert torch.equal(dev[1].cpu(), model_max)
+    assert torch.equal(dev[3].cpu(), model_blocks)
+    assert tally.get("blocks_read", 0) == model_tally.get("blocks_read", 0)
+    assert bool((model_blocks >= hbm_loop.exact_block_max(counts)).all())
 
 
 @pytest.mark.cuda
@@ -609,6 +711,7 @@ def test_kernel_replay_matches_twin(replay_until):
             assert torch.equal(getattr(kern, name), getattr(twin, name)), (name, start)
         assert torch.equal(kern.scalars[:3], twin.scalars[:3]), start
         assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
+        assert bool((kern.block_max >= hbm_loop.exact_block_max(kern.counts)).all()), start
     assert np.array_equal(kern.merges[:num].cpu().numpy(), full)
     assert int(kern.stats[hbm_loop.STAT_REPLAYED]) == replay_until
     assert int(kern.scalars[hbm_loop.DIVERGED]) == 0

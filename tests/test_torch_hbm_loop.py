@@ -407,3 +407,265 @@ def test_select_step_on_cpu_runs_the_model():
     assert got == (*want, hbm_loop.CLUSTER_CTAS)
     assert torch.equal(row_max, model_max)
     assert hbm_loop.LAUNCHES["hbm_select_step"] == before
+
+
+#: Columns a block in the block-verify cases: a small row spans more blocks
+#: than a row the verify reads whole (WHOLE_ROW_BLOCKS, 32 columns).
+SMALL_BLOCK = 4
+
+#: The block-verify cases (block_select_state).
+BLOCK_CASES = (
+    "max_in_later_block", "tie_across_blocks", "bound_equals_best_holds_tie",
+    "stale_high_bounds", "ragged_last_block", "all_blocks_zero",
+)
+
+
+def block_select_state(name: str, seed: int = 0):
+    """A select state with block bounds of SMALL_BLOCK columns: (counts,
+    row_max, block_max, lex_rank, next_id), int32 CPU tensors. Counts of 1
+    to 8 over the live ids [0, 90) of V = 100, so the live row ends inside
+    its sixth block; bounds exact but stale on a third of the blocks (row_max
+    the largest block bound of its row, as K2 keeps it), with the case
+    planted in one winning row w:
+
+    - max_in_later_block: w's top count in block 16, under a stale bound
+      on block 0 that equals w's bound (pass 1 reads nothing more, pass 2
+      finds the max);
+    - tie_across_blocks: w's top count in blocks 11 and 15, the column of
+      block 15 of the greater lex rank;
+    - bound_equals_best_holds_tie: w's top count in block 0 and, at a
+      column of greater lex rank, in block 12, whose bound equals the count
+      while block 0's is stale above it: only a `>=` reads block 12;
+    - stale_high_bounds: every live block's bound above its exact max;
+    - ragged_last_block: w's top count in the last, short block [88, 90);
+    - all_blocks_zero: a row ranked above w with a stale positive bound and
+      no count: its blocks' bounds are all 0.
+    """
+    rng = np.random.default_rng(seed)
+    v, n, b = 100, 90, SMALL_BLOCK
+    counts = np.zeros((v, v), dtype=np.int32)
+    nnz = n * n // 8
+    counts[rng.integers(0, n, nnz), rng.integers(0, n, nnz)] = rng.integers(1, 9, nnz)
+    lex = np.full(v, -1, dtype=np.int32)
+    lex[:n] = rng.permutation(n)
+    top = 20
+    w = int(np.flatnonzero(lex == n - 2)[0])  # a row of high lex rank
+    cols = {"max_in_later_block": [16 * b + 3], "tie_across_blocks": [11 * b + 1, 15 * b + 3],
+            "bound_equals_best_holds_tie": [2, 12 * b + 1], "stale_high_bounds": [20 * b + 1],
+            "ragged_last_block": [n - 1], "all_blocks_zero": [b + 1]}[name]
+    if len(cols) == 2:  # the later column takes the greater lex rank
+        lo, hi = sorted(cols, key=lambda c: int(lex[c]))
+        if hi < lo:
+            lex[[lo, hi]] = lex[[hi, lo]]
+    counts[w, cols] = top
+    blocks = hbm_loop.exact_block_max(torch.from_numpy(counts), b).numpy().copy()
+    live = -(-n // b)
+    stale = rng.random((v, live)) < (1.0 if name == "stale_high_bounds" else 0.3)
+    blocks[:, :live][stale] += rng.integers(1, 4, (v, live))[stale]
+    blocks[n:] = 0
+    if name == "max_in_later_block":
+        blocks[w, 0] = top + 2
+    elif name == "bound_equals_best_holds_tie":
+        blocks[w, 0], blocks[w, 12] = top + 2, top
+    elif name == "all_blocks_zero":
+        z = int(np.flatnonzero(lex == n - 1)[0])
+        counts[z] = 0
+        blocks[z] = 0
+    row_max = blocks.max(axis=1)
+    if name == "all_blocks_zero":
+        row_max[z] = top + 5  # a stale row bound over blocks of no count
+    return (torch.from_numpy(counts), torch.from_numpy(row_max.astype(np.int32)),
+            torch.from_numpy(blocks), torch.from_numpy(lex), n)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("name", BLOCK_CASES)
+def test_block_verify_matches_full_row_verify(name, cluster):
+    """The select with block bounds picks what the select that reads whole
+    rows picks, in the same rounds, and leaves the same row_max: the blocks
+    it leaves unread can hold neither the max nor a tie. Every block it
+    read then holds its exact max, and every other block still bounds its
+    own."""
+    counts, row_max, blocks, lex, n = block_select_state(name)
+    full_max, before = row_max.clone(), blocks.clone()
+    tally: dict[str, int] = {}
+    got = hbm_loop.cluster_select_reference(
+        counts, row_max, lex, next_id=n, min_frequency=1, cluster=cluster,
+        block_max=blocks, block_cols=SMALL_BLOCK, tally=tally,
+    )
+    want = hbm_loop.cluster_select_reference(
+        counts, full_max, lex, next_id=n, min_frequency=1, cluster=cluster,
+    )
+    assert got == want
+    assert got[:3] == hbm_loop.exact_select(counts, counts.amax(dim=1), lex)
+    assert torch.equal(row_max, full_max)
+    exact = hbm_loop.exact_block_max(counts, SMALL_BLOCK)
+    assert bool((blocks >= exact).all()) and bool((blocks <= before).all())
+    changed = blocks != before
+    assert torch.equal(blocks[changed], exact[changed])
+    live = -(-n // SMALL_BLOCK)
+    assert 0 < tally["blocks_read"] < 16 * live  # never every block of every row
+    w = got[0]
+    if name == "stale_high_bounds":  # every block read was stale, so changed
+        assert int(changed.sum()) == tally["blocks_read"]
+    if name == "max_in_later_block":  # pass 1 read and tightened block 0
+        assert int(blocks[w, 0]) == int(exact[w, 0]) < 20
+    if name == "bound_equals_best_holds_tie":  # block 0 tightened to the tie
+        assert int(blocks[w, 0]) == 20 and got[1] == 12 * SMALL_BLOCK + 1
+        # w alone: block 0, then block 12 alone (its bound equals the count
+        # found)
+        assert hbm_loop._verify_blocks(
+            counts[w, :n], before[w].clone(), int(before[w].max()), lex[:n].long(),
+            SMALL_BLOCK,
+        ) == (20, 12 * SMALL_BLOCK + 1, 2)
+    if name == "tie_across_blocks":
+        assert got[1] == 15 * SMALL_BLOCK + 3
+    if name == "ragged_last_block":
+        assert got[1] == n - 1
+
+
+@pytest.mark.parametrize(
+    "name,seed", [("random", s) for s in range(3)] + [(c, 0) for c in SELECT_CASES[1:-1]]
+)
+def test_block_select_model_on_the_select_cases(name, seed):
+    """The select's cases of test_torch_cuda.py with stale block bounds of
+    SMALL_BLOCK columns over them: the same pair, count, rounds and row_max
+    as reading whole rows."""
+    counts, row_max, lex, n, min_freq = select_state(name, seed)
+    rng = np.random.default_rng(seed + 100)
+    blocks = hbm_loop.exact_block_max(counts, SMALL_BLOCK)
+    stale = torch.from_numpy(rng.random(tuple(blocks.shape)) < 0.3)
+    noise = rng.integers(1, 4, tuple(blocks.shape)).astype(np.int32)
+    blocks[stale] += torch.from_numpy(noise)[stale]
+    row_max = torch.maximum(row_max, blocks.amax(dim=1))  # row_max bounds its blocks
+    row_max[n:] = 0
+    full_max = row_max.clone()
+    got = hbm_loop.cluster_select_reference(
+        counts, row_max, lex, next_id=n, min_frequency=min_freq, block_max=blocks,
+        block_cols=SMALL_BLOCK,
+    )
+    want = hbm_loop.cluster_select_reference(
+        counts, full_max, lex, next_id=n, min_frequency=min_freq
+    )
+    assert got == want
+    assert torch.equal(row_max, full_max)
+    assert bool((blocks >= hbm_loop.exact_block_max(counts, SMALL_BLOCK)).all())
+
+
+def test_block_select_model_through_a_run(small_corpus):
+    """Step by step through the small corpus's merges, with row and block
+    bounds raised as the table changes and lowered only by the select's own
+    tightening, as the kernel keeps them (blocks of 16 columns over V =
+    420): the modelled select equals the twin's exact select at every step,
+    and reads fewer blocks than whole rows would."""
+    _, jt = small_corpus
+    base = list(Vocab.base(SPECIALS).tokens())
+    v, b = 420, 16
+    st = hbm_driver.state_from_numpy(jt.words, jt.freqs, base, v, "cpu")
+    bound = st.counts.amax(dim=1)
+    blocks = hbm_loop.exact_block_max(st.counts, b)
+    tally: dict[str, int] = {}
+    rows = 0
+    for step in range(150):
+        n = int(st.scalars[hbm_loop.NEXT_ID])
+        before = tally.get("blocks_read", 0)
+        a, b_, count, _ = hbm_loop.cluster_select_reference(
+            st.counts, bound, st.lex_rank, next_id=n, min_frequency=1, cluster=8,
+            block_max=blocks, block_cols=b, tally=tally,
+        )
+        rows += tally["blocks_read"] > before
+        want = hbm_loop.exact_select(st.counts, st.counts.amax(dim=1), st.lex_rank)
+        if want[2] < 1:
+            assert (a, b_, count) == (-1, -1, 0)
+            break
+        assert (a, b_, count) == want, step
+        hbm_loop.plain_merge_steps(
+            st, chunk_start=step, chunk_size=1, num_merges=v - len(base), min_frequency=1
+        )
+        bound = torch.maximum(bound, st.counts.amax(dim=1))
+        blocks = torch.maximum(blocks, hbm_loop.exact_block_max(st.counts, b))
+    assert rows > 0 and tally["blocks_read"] < 150 * 8 * -(-v // b)
+
+
+def test_twin_chunk_leaves_block_bounds_exact(small_corpus):
+    """A twin chunk (the wrapper on CPU tensors) recomputes block_max
+    exactly, as it does row_max: at V = 2,100, three blocks a row."""
+    _, jt = small_corpus
+    base = list(Vocab.base(SPECIALS).tokens())
+    v = 2100
+    st = hbm_driver.state_from_numpy(jt.words, jt.freqs, base, v, "cpu", num_merges=30)
+    assert tuple(st.block_max.shape) == (v, 3) == (v, hbm_loop.block_count(v))
+    st.block_max += 7  # stale everywhere
+    hbm_loop.hbm_merge_chunk(st, chunk_start=0, chunk_size=30, num_merges=30, min_frequency=1)
+    assert int(st.scalars[hbm_loop.NUM_DONE]) == 30
+    assert torch.equal(st.block_max, hbm_loop.exact_block_max(st.counts))
+    assert torch.equal(st.row_max, st.block_max.amax(dim=1))
+
+
+def test_select_step_block_bounds_default_to_exact():
+    """hbm_select_step without block_max uses the exact block maxima of
+    counts; given stale ones, it tightens the blocks it reads, and picks the
+    same pair either way."""
+    counts, row_max, lex, n, min_freq = select_state("random", 3)
+    stale = hbm_loop.exact_block_max(counts) + 2
+    stale[n:] = 0
+    row_max = torch.maximum(row_max, stale.amax(dim=1))
+    row_max[n:] = 0
+    plain_max = row_max.clone()
+    plain = hbm_loop.hbm_select_step(counts, plain_max, lex, next_id=n, min_frequency=min_freq)
+    tally: dict[str, int] = {}
+    got = hbm_loop.hbm_select_step(
+        counts, row_max, lex, next_id=n, min_frequency=min_freq, block_max=stale, tally=tally
+    )
+    assert got == plain and torch.equal(row_max, plain_max)
+    assert tally["blocks_read"] >= 1
+    assert bool((stale >= hbm_loop.exact_block_max(counts)).all())
+    with pytest.raises(ValueError, match="block_max must be"):
+        hbm_loop.hbm_select_step(
+            counts, row_max, lex, next_id=n, min_frequency=min_freq, block_max=stale[:, :0]
+        )
+
+
+@pytest.mark.parametrize("stale_row_bound", [False, True])
+def test_block_verify_takes_two_passes_past_a_pass_of_blocks(stale_row_bound):
+    """A row of 25 blocks of 8 columns whose block 0 (read first) holds
+    little, under ten stale bounds above it (more than a block a warp):
+    pass 1 reads only the blocks that may hold the row's bound;
+    where those hold less (a stale row bound over an empty block), pass 2
+    reads every block whose bound reaches the best count read. The max and
+    its column are the whole row's."""
+    b, n = 8, 200
+    row = torch.zeros(n, dtype=torch.int32)
+    row[3] = 2  # block 0
+    row[20 * b + 5] = 15  # the max, in block 20
+    row[9 * b + 1] = 15  # a tie in block 9, of lower lex rank
+    lex = torch.arange(n, dtype=torch.int64)
+    bounds = hbm_loop.exact_block_max(row[None, :], b)[0].clone()
+    bounds[10:20] = 10  # stale, above block 0's max
+    if stale_row_bound:
+        bounds[21] = 18  # the row's bound, over a block of no count
+    before = bounds.clone()
+    got = hbm_loop._verify_blocks(row, bounds, int(bounds.max()), lex, b)
+    # block 0; pass 1: the blocks at the row's bound (9 and 20, or 21);
+    # pass 2 after the stale one: every other block whose bound reaches 2
+    stale = set(range(10, 20))
+    want_read = {0} | ({9, 20, 21} | stale if stale_row_bound else {9, 20})
+    assert got == (15, 20 * b + 5, len(want_read))
+    changed = set(torch.nonzero(bounds != before)[:, 0].tolist())
+    assert changed == ({21} | stale if stale_row_bound else set())
+    assert bool((bounds >= hbm_loop.exact_block_max(row[None, :], b)[0]).all())
+
+
+def test_rows_of_a_batch_are_verified_whole():
+    """A row of at most WHOLE_ROW_BLOCKS blocks is read whole, however
+    stale its block bounds: its max, its column, every block read, and its
+    bounds left as they were (they stay upper bounds)."""
+    b = 4
+    row = torch.tensor([0, 3, 0, 1, 9, 0, 0, 9, 2] + [1] * 23, dtype=torch.int32)
+    assert -(-row.shape[0] // b) == hbm_loop.WHOLE_ROW_BLOCKS
+    lex = torch.arange(row.shape[0], dtype=torch.int64).flip(0)  # column 4 ranks above 7
+    bounds = torch.full((8,), 50, dtype=torch.int32)
+    assert hbm_loop._verify_blocks(row, bounds, 50, lex, b) == (9, 4, 8)
+    assert bool((bounds == 50).all())
+    assert hbm_loop._verify_blocks(torch.zeros(30, dtype=torch.int32), bounds, 50, lex[:30], b) \
+        == (0, 0, 8)

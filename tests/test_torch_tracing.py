@@ -199,11 +199,12 @@ def test_k2_counters_take_stat_differences_modulo_2_32():
     stats0[hbm_loop.STAT_NS_COMPARE], stats1[hbm_loop.STAT_NS_COMPARE] = 2**31 - 1, -(2**31) + 6
     stats0[hbm_loop.STAT_NS_VOCAB], stats1[hbm_loop.STAT_NS_VOCAB] = 7, 17
     stats0[hbm_loop.STAT_NS_STEP], stats1[hbm_loop.STAT_NS_STEP] = 0, 10**6  # read by none
+    stats0[hbm_loop.STAT_BLOCKS_READ], stats1[hbm_loop.STAT_BLOCKS_READ] = 2**31 - 3, -(2**31) + 600
     scalars0, scalars1 = [0] * hbm_loop.N_SCALARS, [0] * hbm_loop.N_SCALARS
     scalars0[hbm_loop.NUM_DONE], scalars1[hbm_loop.NUM_DONE] = 100, 150
     got = hbm_driver.k2_counters((scalars0, stats0), (scalars1, stats1))
-    assert got == {"k2.steps": 47, "k2.rows_verified": 400, "k2.select_ns": 150 + 20,
-                   "k2.bound_ns": 150, "k2.vocab_ns": 7 + 10}
+    assert got == {"k2.steps": 47, "k2.rows_verified": 400, "k2.blocks_read": 603,
+                   "k2.select_ns": 150 + 20, "k2.bound_ns": 150, "k2.vocab_ns": 7 + 10}
 
 
 @pytest.mark.cuda
@@ -221,3 +222,4 @@ def test_k2_counters_on_the_card():
     assert got["k2.steps"] == len(model.merges)
     assert got["k2.rows_verified"] > 0 and got["k2.select_ns"] > 0
     assert 0 < got["k2.bound_ns"] < got["k2.select_ns"] and got["k2.vocab_ns"] > 0
+    assert got["k2.blocks_read"] >= got["k2.rows_verified"]

@@ -335,3 +335,47 @@ def test_input_errors_and_empty_corpus(tmp_path):
         BBPETrainerConfig(vocab_size=300, special_tokens=SPECIALS)
     ).train([DATA / "empty.txt"])
     assert model.merges == [] and len(model.vocab) == 257
+
+
+def test_k2_state_holds_block_bounds_of_its_corner():
+    """state_from_numpy's block_max: each row's corner max in block 0 (every
+    base id lies below BLOCK_COLS), 0 elsewhere, so row_max is the largest
+    of its row's block bounds; and state_bytes is the state's own bytes,
+    the block bounds included."""
+    from collections import Counter
+
+    from yabpe_tpu_torch.core.vocab import Vocab
+    from yabpe_tpu_torch.core.wordtable import WordTable
+    from yabpe_tpu_torch.kernels import hbm_loop
+    from yabpe_tpu_torch.train import hbm_driver
+
+    table = WordTable.from_counter(Counter({b"hello": 3, b"world": 2, b"low": 5, b"\xff\x00": 1}))
+    base = list(Vocab.base(SPECIALS).tokens())
+    v, num = 2500, 40
+    st = hbm_driver.state_from_numpy(table.words, table.freqs, base, v, "cpu", num_merges=num)
+    assert tuple(st.block_max.shape) == (v, 3) and hbm_loop.BLOCK_COLS == 1024
+    assert torch.equal(st.block_max[:, 0], st.row_max)
+    assert not bool(st.block_max[:, 1:].any())
+    assert torch.equal(st.block_max, hbm_loop.exact_block_max(st.counts))
+    n, w = table.words.shape
+    need = hbm_driver.state_bytes(n, w, v, st.token_bytes.shape[1], num)
+    assert need == sum(t.numel() * t.element_size() for t in st.tensors())
+    without = need - 4 * v * hbm_loop.block_count(v)
+    assert without == 4 * (n * (w + 1) + v * v + v * (st.token_bytes.shape[1] + 3)
+                           + 3 * num + hbm_loop.N_SCALARS + hbm_loop.N_STATS)
+
+
+def test_k2_counters_count_blocks_read_modulo_2_32():
+    """k2.blocks_read is the difference of the kernel's blocks-read slot
+    over the stretch, modulo 2^32 like every other slot."""
+    from yabpe_tpu_torch.kernels import hbm_loop
+    from yabpe_tpu_torch.train import hbm_driver
+
+    assert hbm_loop.N_STATS == 11 and hbm_loop.STAT_BLOCKS_READ == 10
+    scalars = [0] * hbm_loop.N_SCALARS
+    for before, after, want in [(0, 25, 25), (2**31 - 10, -(2**31) + 5, 15), (-1, 3, 4)]:
+        s0, s1 = [0] * hbm_loop.N_STATS, [0] * hbm_loop.N_STATS
+        s0[hbm_loop.STAT_BLOCKS_READ], s1[hbm_loop.STAT_BLOCKS_READ] = before, after
+        got = hbm_driver.k2_counters((scalars, s0), (scalars, s1))
+        assert got["k2.blocks_read"] == want
+        assert got["k2.rows_verified"] == 0  # the slot beside it is its own
