@@ -94,27 +94,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def derive_gpt2_merges(vocab: dict[bytes, int]) -> list[tuple[bytes, bytes]]:
-    """GPT-2's merges in rank order from its vocabulary: each token of id
-    256..50255, BPE-encoded with the merges derived so far, splits into
-    exactly two parts, which are that rank's merge."""
-    ranks: dict[tuple[bytes, bytes], int] = {}
-    merges: list[tuple[bytes, bytes]] = []
-    for token, _ in sorted(vocab.items(), key=lambda kv: kv[1])[256:]:
-        if token == SPECIALS[0].encode():
-            continue
-        parts = [bytes([b]) for b in token]
-        while len(parts) > 2:
-            k = min(range(len(parts) - 1),
-                    key=lambda i: ranks.get((parts[i], parts[i + 1]), len(ranks)))
-            require((parts[k], parts[k + 1]) in ranks, f"gpt2: {token!r} has no known pair")
-            parts[k:k + 2] = [parts[k] + parts[k + 1]]
-        require(len(parts) == 2, f"gpt2: {token!r} does not split into two")
-        ranks[(parts[0], parts[1])] = len(merges)
-        merges.append((parts[0], parts[1]))
-    return merges
-
-
 def _reset_peak(device: str) -> None:
     import torch
 
@@ -258,7 +237,7 @@ def encode_leg(*, device: str = "cuda", card: str = "") -> dict:
 
     t0 = time.perf_counter()
     vocab = gpt2.load_gpt2_vocab(FIXTURES / "gpt2_vocab.json")
-    merges = derive_gpt2_merges(vocab)
+    merges = gpt2.derive_gpt2_merges(vocab)
     derive_s = time.perf_counter() - t0
     tok = BBPETokenizer(vocab, merges, SPECIALS, compute_device=device)
     text = FIVE_M.read_text(encoding="utf-8")

@@ -44,15 +44,14 @@
 //      which the table and the bounds are whole for the next select.
 // The barriers are the cluster's, or __syncthreads where the cluster is
 // one CTA (every problem of up to 512 rows, the CS336 snapshot's included).
-// On an H100 at V = 1000 a step takes 8.3 us, against 16.4-16.9 us for the
-// first design (fused_loop_v1.cu: one cooperative grid of occupancy x 132
-// blocks, three grid barriers a step, a select that rescanned all
-// next_id^2 live cells, a dedup walk over every live token); 256- and
-// 1024-thread CTAs took 9.0 and 10.5 us (PERF.md, scripts/
-// profile_k1_k3.py). At the top of the admission (26,624 rows at V =
-// 500) the cluster of 16 takes 19.9 us a step and the first design's
-// larger grid 21.8 us: the apply dominates there, and a larger grid does
-// not pay for it.
+// On an H100 at V = 1000 a step takes 8.3 us, against 16.4-16.9 us for a
+// first design of one cooperative grid of occupancy x 132 blocks, three
+// grid barriers a step, a select that rescanned all next_id^2 live cells
+// and a dedup walk over every live token; 256- and 1024-thread CTAs took
+// 9.0 and 10.5 us (PERF.md). At the top of the admission (26,624 rows at
+// V = 500) the cluster of 16 takes 19.9 us a step and that larger grid
+// 21.8 us: the apply dominates there, and a larger grid does not pay for
+// it.
 //
 // The select (CTA 0). row_max is an upper bound on each row's max count:
 // the apply raises it with atomicMax, a verified row is tightened to its
@@ -104,10 +103,6 @@
 //     yabpe_fused_token_layout's, once per (V, L); a caller may force the
 //     global layout where the shared one fits.
 //
-// An optional phase timer (`phases`, enum Phase) adds thread 0 of CTA 0's
-// nanoseconds by %globaltimer per phase; the wrapper passes null unless a
-// measurement asks for it.
-//
 // Build: plain nvcc for sm_90a; clusters and distributed shared memory
 // need no other flag and no relocatable device code.
 
@@ -140,27 +135,6 @@ enum Scalar : int {
 
 // yabpe_fused_select's output.
 enum Out : int { kOutA = 0, kOutB, kOutCount, kOutRounds, kNumOut };
-
-// The optional phase timer (kernels/fused_loop.py's PHASES): steps, verify
-// rounds, and the nanoseconds by %globaltimer that thread 0 of CTA 0
-// spends in each phase of a step.
-enum Phase : int {
-  kPhSteps = 0,
-  kPhRounds,
-  kPhSelect,   // the lazy select
-  kPhCompare,  // merged bytes and the rank search
-  kPhVocab,    // vocab update, record and publication
-  kPhWait,     // the first cluster barrier
-  kPhApply,    // CTA 0's share of the apply
-  kPhSync,     // the second cluster barrier
-  kNumPhases
-};
-
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 
 constexpr int kThreads = 512;
 constexpr int kStripes = kThreads / 32;  // the select's stripes, one per warp
@@ -382,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fused_kernel(int* words, const int* __restrict__ freqs, int* counts,
                  int* row_max, int* token_bytes, int* token_len,
                  int* lex_rank, int* merges, int* scalars, int* out,
-                 long long* phases, int N, int W, int V, int L,
+                 int N, int W, int V, int L,
                  int step_begin, int step_end, int min_frequency,
                  int select_n) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -408,16 +382,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gtid = rank * kThreads + tid, gsize = ctas * kThreads;
   const int thr = max(min_frequency, 1);
-  // the phase timer runs on thread 0 of CTA 0 only
-  const bool timing = phases != nullptr && rank == 0 && tid == 0;
-  long long t_mark = 0, ph[kNumPhases] = {};
-  auto lap = [&](int phase) {
-    if (timing) {
-      const long long now = global_ns();
-      ph[phase] += now - t_mark;
-      t_mark = now;
-    }
-  };
 
   int next_id = out != nullptr ? select_n : scalars[kNextId];
   int stopped = out != nullptr ? 0 : scalars[kStopped];
@@ -450,13 +414,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   for (int step = step_begin; step < step_end && !stopped; ++step) {
-    if (timing) t_mark = global_ns();
     if (rank == 0) {
       int b, rounds;
       const u64 best = select_pair(counts, row_max, keys, lex, next_id, V,
                                    thr, scratch, b, rounds);
-      lap(kPhSelect);
-      ph[kPhRounds] += rounds;
       const bool stop = key_count(best) < thr;
       const int a = key_id(best);
       if (!stop) {
@@ -487,7 +448,6 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
         __syncthreads();
-        lap(kPhCompare);
         const int ins = search[0], eq = search[1];
         const int c = eq < 0 ? next_id : eq;
         if (eq < 0) {  // grow: a new token at rank ins
@@ -518,10 +478,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       if (tid == 0) pub[3] = stop ? 1 : 0;
-      lap(kPhVocab);
     }
     step_barrier(cluster, ctas);  // 1: the pair is published, the select done
-    lap(kPhWait);
 
     const int* p0 = cluster.map_shared_rank(pub, 0);
     if (p0[3]) {  // every thread of the cluster reads the same flag
@@ -539,10 +497,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     next_id += c == next_id ? 1 : 0;
     num_done += 1;
-    lap(kPhApply);
     step_barrier(cluster, ctas);  // 2: the table and the bounds are whole
-    lap(kPhSync);
-    ph[kPhSteps] += 1;
   }
   // No CTA leaves while another may still read CTA 0's pub.
   step_barrier(cluster, ctas);
@@ -555,13 +510,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       scalars[kNumDone] = num_done;
     }
   }
-  if (timing)
-    for (int k = 0; k < kNumPhases; ++k) phases[k] += ph[k];
 }
 
 using Kernel = void (*)(int*, const int*, int*, int*, int*, int*, int*, int*,
-                       int*, int*, long long*, int, int, int, int, int, int,
-                       int, int);
+                       int*, int*, int, int, int, int, int, int, int, int);
 
 // The instantiation for a token layout and a word width.
 Kernel kernel_for(bool tok_global, int W) {
@@ -576,7 +528,7 @@ const Kernel kKernels[] = {fused_kernel<false, false>, fused_kernel<false, true>
 cudaError_t launch(Kernel kernel, int ctas, size_t smem, cudaStream_t st, int* words,
                    const int* freqs, int* counts, int* row_max,
                    int* token_bytes, int* token_len, int* lex_rank,
-                   int* merges, int* scalars, int* out, long long* phases,
+                   int* merges, int* scalars, int* out,
                    int N, int W, int V, int L, int step_begin, int step_end,
                    int min_frequency, int select_n) {
   cudaLaunchConfig_t cfg = {};
@@ -593,7 +545,7 @@ cudaError_t launch(Kernel kernel, int ctas, size_t smem, cudaStream_t st, int* w
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, words, freqs, counts, row_max,
                             token_bytes, token_len, lex_rank, merges, scalars,
-                            out, phases, N, W, V, L, step_begin, step_end,
+                            out, N, W, V, L, step_begin, step_end,
                             min_frequency, select_n);
 }
 
@@ -604,8 +556,6 @@ cudaError_t launch(Kernel kernel, int ctas, size_t smem, cudaStream_t st, int* w
 extern "C" int yabpe_fused_narrow_width() { return yabpe::kMaxWidth; }
 
 extern "C" int yabpe_fused_select_stripes() { return kStripes; }
-
-extern "C" int yabpe_fused_num_phases() { return kNumPhases; }
 
 extern "C" const char* yabpe_fused_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -686,13 +636,12 @@ extern "C" int yabpe_fused_cluster_ctas(int N, int W, int V, int L, int tok_glob
 
 // Runs merge steps [step_begin, step_end) in one launch of one
 // `ctas`-CTA cluster on `stream`, without syncing, with the token bytes in
-// shared memory (tok_global 0) or in device memory (1); adds the phase
-// timer to `phases` ([kNumPhases] int64) unless it is null. Returns the
+// shared memory (tok_global 0) or in device memory (1). Returns the
 // launch's cudaError_t, 0 on success.
 extern "C" int yabpe_fused_merge_chunk(
     int* words, const int* freqs, int* counts, int* row_max, int* token_bytes,
     int* token_len, int* lex_rank, int* merges, int* scalars,
-    long long* phases, int N, int W, int V, int L, int step_begin,
+    int N, int W, int V, int L, int step_begin,
     int step_end, int min_frequency, int ctas, int tok_global, void* stream) {
   if (W < 2 || V > 0xFFFF || V < 1 || L < 2 || L % 2 || ctas < 1 ||
       ctas > kMaxCtas)
@@ -702,7 +651,7 @@ extern "C" int yabpe_fused_merge_chunk(
       smem_bytes(V, L, tok_global ? kTokGlobal : kTokShared),
       static_cast<cudaStream_t>(stream), words, freqs,
       counts, row_max, token_bytes, token_len, lex_rank, merges, scalars,
-      nullptr, phases, N, W, V, L, step_begin, step_end, min_frequency, 0);
+      nullptr, N, W, V, L, step_begin, step_end, min_frequency, 0);
   const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -719,7 +668,7 @@ extern "C" int yabpe_fused_select(const int* counts, int* row_max,
       launch(fused_kernel<false, false>, 1, smem_bytes(V, 0, kSelectOnly),
              static_cast<cudaStream_t>(stream), nullptr,
              nullptr, const_cast<int*>(counts), row_max, nullptr, nullptr,
-             lex_rank, nullptr, nullptr, out, nullptr, 0, 2, V, 1, 0, 0,
+             lex_rank, nullptr, nullptr, out, 0, 2, V, 1, 0, 0,
              min_frequency, next_id);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);

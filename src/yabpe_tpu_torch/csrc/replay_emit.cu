@@ -52,11 +52,10 @@
 // less over an epoch's four. Reserving once per block per step (a block
 // scan) measured slower: 40 us with the steps' atomics one after another,
 // 81-93 us with a 16-step group's atomics in flight together and the
-// group merged twice. The first design
-// (replay_emit_v1.cu) made 21 stream operations a call: a copy of the
-// shard, three memsets of the logs, an init kernel and one launch per
-// chain step, each scanning the whole shard for the few words that hold
-// its pair.
+// group merged twice. A first design made 21 stream operations a call: a
+// copy of the shard, three memsets of the logs, an init kernel and one
+// launch per chain step, each scanning the whole shard for the few words
+// that hold its pair.
 //
 // Stream operations a call: one memset of 2K ints (cursor and ok, both
 // zeroed) and this one launch. The logs are not cleared: a reader masks

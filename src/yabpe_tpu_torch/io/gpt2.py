@@ -14,6 +14,9 @@ byte tokens ordered by their remap codepoint, ids 256..256+M-1 are the merge
 concatenations in merges-file order, and `<|endoftext|>` takes the final id
 — byte-identical to the published 50,257-entry vocabulary. This matters in
 offline installations, where tiktoken cannot fetch encodings.
+
+The port adds the converse, :func:`derive_gpt2_merges`: the merges in rank
+order from the vocabulary alone.
 """
 
 from __future__ import annotations
@@ -121,6 +124,30 @@ def reconstruct_gpt2_vocab(
     return vocab
 
 
+def derive_gpt2_merges(vocab: dict[bytes, int]) -> list[tuple[bytes, bytes]]:
+    """GPT-2's merges in rank order from its vocabulary: each token of id
+    256 and up but `<|endoftext|>`, BPE-encoded with the merges derived so
+    far, splits into exactly two parts, which are that rank's merge.
+    Raises ValueError for a vocabulary that is not built that way."""
+    ranks: dict[tuple[bytes, bytes], int] = {}
+    merges: list[tuple[bytes, bytes]] = []
+    for token, _ in sorted(vocab.items(), key=lambda kv: kv[1])[256:]:
+        if token == b"<|endoftext|>":
+            continue
+        parts = [bytes([b]) for b in token]
+        while len(parts) > 2:
+            k = min(range(len(parts) - 1),
+                    key=lambda i: ranks.get((parts[i], parts[i + 1]), len(ranks)))
+            if (parts[k], parts[k + 1]) not in ranks:
+                raise ValueError(f"gpt2: {token!r} has no known pair")
+            parts[k:k + 2] = [parts[k] + parts[k + 1]]
+        if len(parts) != 2:
+            raise ValueError(f"gpt2: {token!r} does not split into two")
+        ranks[(parts[0], parts[1])] = len(merges)
+        merges.append((parts[0], parts[1]))
+    return merges
+
+
 __all__ = [
     "byte_to_unicode",
     "unicode_to_byte",
@@ -131,4 +158,5 @@ __all__ = [
     "save_gpt2_vocab",
     "save_gpt2_merges",
     "reconstruct_gpt2_vocab",
+    "derive_gpt2_merges",
 ]

@@ -68,12 +68,6 @@ LAUNCHES: dict[str, int] = {"fused_merge_chunk": 0, "fused_select_step": 0}
 #: Stripes of the kernel's select: one per warp of its first CTA.
 SELECT_STRIPES = 16
 
-#: Slots of the kernel's optional phase timer (``fused_merge_chunk``'s
-#: ``phases``, int64): steps and verify rounds, then the nanoseconds by the
-#: card's global timer that thread 0 of the first CTA spends in each phase
-#: of a step (the select of the step that stops included).
-PHASES = ("steps", "rounds", "select", "compare", "vocab", "wait", "apply", "sync")
-
 
 @dataclass
 class FusedState:
@@ -120,7 +114,6 @@ def fused_merge_chunk(
     chunk_size: int,
     num_merges: int,
     min_frequency: int,
-    phases: torch.Tensor | None = None,
     _layout: str | None = None,
 ) -> None:
     """Run merge steps [chunk_start, chunk_start + chunk_size), capped at
@@ -128,12 +121,10 @@ def fused_merge_chunk(
 
     CUDA tensors go through the CUDA kernel, on PyTorch's current stream
     and without a sync; CPU tensors through the twin. Any other device, a
-    build failure or a launch failure raises. ``phases``, an int64
-    [len(PHASES)] tensor on the state's CUDA device, receives the kernel's
-    phase timer (a measurement; the twin has none). The layout of the
-    token bytes is :func:`token_layout`'s; ``_layout``, a hook for tests
-    and measurements, forces one of :data:`TOKEN_LAYOUTS` ("shared" where
-    the bytes do not fit raises).
+    build failure or a launch failure raises. The layout of the token
+    bytes is :func:`token_layout`'s; ``_layout``, a hook for tests, forces
+    one of :data:`TOKEN_LAYOUTS` ("shared" where the bytes do not fit
+    raises).
     """
     state.check()
     device = state.words.device
@@ -153,10 +144,6 @@ def fused_merge_chunk(
         return
     if state.merges.shape[0] < step_end:
         raise ValueError("FusedState.merges has fewer rows than steps")
-    if phases is not None and (
-        phases.dtype != torch.int64 or phases.shape != (len(PHASES),) or phases.device != device
-    ):
-        raise ValueError(f"phases must be int64 [{len(PHASES)}] on {device}")
     n, w = state.words.shape
     v, byte_width = state.token_bytes.shape
     layout = token_layout(v, byte_width, device) if _layout is None else _layout
@@ -168,7 +155,6 @@ def fused_merge_chunk(
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.yabpe_fused_merge_chunk(
             *(t.data_ptr() for t in state.tensors()),
-            None if phases is None else phases.data_ptr(),
             n, w, v, byte_width, chunk_start, step_end, min_frequency, ctas,
             TOKEN_LAYOUTS.index(layout), stream,
         )
@@ -297,7 +283,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_loop")
     lib.yabpe_fused_merge_chunk.restype = ctypes.c_int
     lib.yabpe_fused_merge_chunk.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     lib.yabpe_fused_select.restype = ctypes.c_int
     lib.yabpe_fused_select.argtypes = (
@@ -306,7 +292,7 @@ def _library() -> ctypes.CDLL:
     lib.yabpe_fused_error_string.restype = ctypes.c_char_p
     lib.yabpe_fused_error_string.argtypes = [ctypes.c_int]
     for name in ("yabpe_fused_narrow_width", "yabpe_fused_select_stripes",
-                 "yabpe_fused_num_phases", "yabpe_fused_prepare"):
+                 "yabpe_fused_prepare"):
         getattr(lib, name).restype = ctypes.c_int
         getattr(lib, name).argtypes = []
     lib.yabpe_fused_token_layout.restype = ctypes.c_int
@@ -317,8 +303,6 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError("csrc/fused_loop.cu disagrees on NARROW_WIDTH")
     if lib.yabpe_fused_select_stripes() != SELECT_STRIPES:
         raise RuntimeError("csrc/fused_loop.cu disagrees on SELECT_STRIPES")
-    if lib.yabpe_fused_num_phases() != len(PHASES):
-        raise RuntimeError("csrc/fused_loop.cu disagrees on PHASES")
     return lib
 
 
@@ -329,19 +313,16 @@ def fused_merge_chunk_reference(
     chunk_size: int,
     num_merges: int,
     min_frequency: int,
-    tally: dict[str, int] | None = None,
 ) -> None:
     """The plain twin of :func:`fused_merge_chunk`, in torch ops on any
     device; updates ``state`` in place: ``kernels.hbm_loop.
-    plain_merge_steps`` (whose ``tally`` this is), then ``row_max``
-    recomputed exactly."""
+    plain_merge_steps``, then ``row_max`` recomputed exactly."""
     plain_merge_steps(
         state,
         chunk_start=chunk_start,
         chunk_size=chunk_size,
         num_merges=num_merges,
         min_frequency=min_frequency,
-        tally=tally,
     )
     state.row_max.copy_(state.counts.amax(dim=1))
 
@@ -376,7 +357,6 @@ def rank_search_reference(
 __all__ = [
     "LAUNCHES",
     "NARROW_WIDTH",
-    "PHASES",
     "SELECT_STRIPES",
     "TOKEN_LAYOUTS",
     "FusedState",

@@ -399,7 +399,6 @@ def hbm_merge_chunk_reference(
     num_merges: int,
     min_frequency: int,
     replay_until: int = 0,
-    tally: dict[str, int] | None = None,
 ) -> None:
     """The plain twin of :func:`hbm_merge_chunk`, in torch ops on any
     device; updates ``state`` in place: :func:`plain_merge_steps`, then
@@ -411,7 +410,6 @@ def hbm_merge_chunk_reference(
         num_merges=num_merges,
         min_frequency=min_frequency,
         replay_until=replay_until,
-        tally=tally,
     )
     state.row_max.copy_(state.counts.amax(dim=1))
     state.block_max.copy_(exact_block_max(state.counts))
@@ -425,7 +423,6 @@ def plain_merge_steps(
     num_merges: int,
     min_frequency: int,
     replay_until: int = 0,
-    tally: dict[str, int] | None = None,
 ) -> None:
     """Merge steps [chunk_start, chunk_start + chunk_size), capped at
     ``num_merges``, in plain torch ops, on a merge-loop state (any object
@@ -438,14 +435,6 @@ def plain_merge_steps(
     lex-rank insertion) and applies the merge to every word that holds
     the pair. A step below ``replay_until`` takes the pair from its row of
     ``merges`` instead, as :func:`hbm_merge_chunk` says.
-
-    ``tally``, when given, accumulates the bytes that the chunk's steps
-    need at least (the least work a kernel could do): a row max and one
-    verified count row (8V per live step; a replayed step reads neither),
-    the live symbols of the words that hold the pair (read and written,
-    up to the first -1 and not the padding, with their frequencies) and
-    the distinct changed cells (read and written); and, under
-    ``affected_words``, how many words the merges changed.
     """
     v = s.counts.shape[0]
     scal = s.scalars.tolist()
@@ -491,10 +480,8 @@ def plain_merge_steps(
             scal[DIVERGED], scal[STOPPED] = step + 1, 1
             break
 
-        _apply_merge(s, a, b, c, tally)
+        _apply_merge(s, a, b, c)
         row_max = s.counts.amax(dim=1)
-        if tally is not None and not replay:  # a replayed step selects nothing
-            tally["bytes"] = tally.get("bytes", 0) + 8 * v
 
     scal[NEXT_ID], scal[NUM_DONE] = next_id, num_done
     s.scalars.copy_(torch.tensor(scal, dtype=torch.int32))
@@ -685,11 +672,11 @@ def merge_rows(
     ``words`` [N, W] that holds the pair.
 
     Returns None when no word holds it, else the delta cells (left, right,
-    weight) and the number of words changed. The cells are every old pair
-    at -freq and every new pair at +freq of each changed word or, with
-    ``window``, only the pairs of its changed window: from the pair before
-    the first merge to the pair after the last one (the cells that the
-    CUDA apply step of ``csrc/merge_apply.cuh`` emits, in the same number).
+    weight): every old pair at -freq and every new pair at +freq of each
+    changed word or, with ``window``, only the pairs of its changed window:
+    from the pair before the first merge to the pair after the last one
+    (the cells that the CUDA apply step of ``csrc/merge_apply.cuh`` emits,
+    in the same number).
     Either way they sum to the same net delta.
     """
     hit = (words[:, :-1] == a) & (words[:, 1:] == b)
@@ -730,32 +717,20 @@ def merge_rows(
         new_mask = (k >= lo) & (k <= new_hi)
     old_l, old_r, old_f = _pairs(old, freqs, old_mask)
     new_l, new_r, new_f = _pairs(out, freqs, new_mask)
-    cells = (
+    return (
         torch.cat([old_l, new_l]),
         torch.cat([old_r, new_r]),
         torch.cat([-old_f, new_f]),
     )
-    return cells, n
 
 
-def _apply_merge(s, a: int, b: int, c: int, tally: dict[str, int] | None) -> None:
+def _apply_merge(s, a: int, b: int, c: int) -> None:
     """Leftmost non-overlapping (a, b) -> c in every word that holds the
     pair, and the matching count deltas."""
-    if tally is not None:  # the live symbols of the words that change
-        hit = ((s.words[:, :-1] == a) & (s.words[:, 1:] == b)).any(dim=1)
-        live = int((s.words[hit] >= 0).sum())
     applied = merge_rows(s.words, s.freqs, a, b, c)
     if applied is None:
         return
-    (left, right, deltas), n = applied
+    left, right, deltas = applied
     v = s.counts.shape[0]
     cells = left.long() * v + right.long()
     s.counts.view(-1).index_add_(0, cells, deltas)
-    if tally is not None:
-        uniq, inverse = torch.unique(cells, return_inverse=True)
-        net = torch.zeros_like(uniq).index_add_(0, inverse, deltas.long())
-        changed = int((net != 0).sum())
-        tally["affected_words"] = tally.get("affected_words", 0) + n
-        # each changed word: its live symbols read and written, its freq
-        # read; each net-changed cell read and written
-        tally["bytes"] = tally.get("bytes", 0) + 8 * live + 4 * n + 8 * changed

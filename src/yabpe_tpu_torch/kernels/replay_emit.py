@@ -215,7 +215,6 @@ def replay_emit_chunk_reference(
     *,
     cps: int,
     cps0: int,
-    tally: dict[str, int] | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """The plain twin of :func:`replay_emit_chunk`, in torch ops on any
     device; the shard it is given is left as it was.
@@ -225,13 +224,6 @@ def replay_emit_chunk_reference(
     step with more cells than slots gets ok = 0 and keeps only its first
     cells. ``cursor[j]`` is the step's cell count; the slots past it are
     cleared (left = right = -1, weight 0), as the JAX kernel leaves them.
-
-    ``tally``, when given, accumulates the bytes that the call must move at
-    least (under ``bytes``): the shard and the frequencies read once, the
-    new shard written once, the chain read, the logged cells (three ints
-    each) and the flags and cursors written once; and, under
-    ``affected_words`` and ``cells``, how many words the chain changed and
-    how many cells it logged.
     """
     num_steps = chain.shape[0]
     out_words, log_l, log_r, log_w, flags = _outputs(words, num_steps, cps, cps0)
@@ -243,14 +235,12 @@ def replay_emit_chunk_reference(
     ok.fill_(1)
     cursor.zero_()
     flat = (log_l.view(-1), log_r.view(-1), log_w.view(-1))
-    affected = cells = kept_cells = 0
     for j, (a, b, c) in enumerate(chain.tolist()):
         if a < 0:
             continue
-        applied = merge_rows(out_words, freqs, a, b, c, window=True)
-        if applied is None:
+        step_cells = merge_rows(out_words, freqs, a, b, c, window=True)
+        if step_cells is None:
             continue
-        step_cells, n = applied
         first, cap = step_slots(j, cps, cps0)
         count = step_cells[0].numel()
         cursor[j] = count
@@ -259,17 +249,6 @@ def replay_emit_chunk_reference(
         kept = min(count, cap)
         for log, values in zip(flat, step_cells):
             log[first : first + kept] = values[:kept]
-        affected += n
-        cells += count
-        kept_cells += kept
-    if tally is not None:
-        moved = (
-            8 * words.numel() + 4 * freqs.numel() + 4 * chain.numel()
-            + 12 * kept_cells + 4 * flags.numel()
-        )
-        tally["bytes"] = tally.get("bytes", 0) + moved
-        tally["affected_words"] = tally.get("affected_words", 0) + affected
-        tally["cells"] = tally.get("cells", 0) + cells
     return out_words, log_l, log_r, log_w, ok, cursor
 
 

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels on a card, held against their plain twins.
+"""The port on a card: its CUDA kernels held against their plain twins,
+and the flows that reach the card (training, checkpoint resume, the
+sharded loops, two processes over gloo, the CLI, encoding and the bench
+harness) held against the native loop, the golden ids or one process.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither JAX nor the JAX package, so it also runs on a machine
@@ -11,6 +14,8 @@ Every comparison is exact: all of this is integer arithmetic.
 
 from __future__ import annotations
 
+import json
+import pickle
 from collections import Counter
 from pathlib import Path
 
@@ -27,6 +32,9 @@ from yabpe_tpu_torch.pretok.ingest import count_pretokens
 from yabpe_tpu_torch.train import fused_driver, hbm_driver
 
 DATA = Path(__file__).resolve().parent / "data"
+FIXTURES = Path(__file__).resolve().parent / "fixtures_gpt2"
+SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
+PERFBENCH = Path(__file__).resolve().parent.parent / "perfbench"
 SPECIALS = ["<|endoftext|>"]
 TENSORS = ("words", "counts", "merges", "token_bytes", "token_len", "lex_rank")
 
@@ -34,6 +42,15 @@ TENSORS = ("words", "counts", "merges", "token_bytes", "token_len", "lex_rank")
 def _need_cuda() -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+def _load_by_path(name: str, path: Path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 #: Cases of the select's states (select_state); "wide" is for the card.
@@ -138,7 +155,7 @@ def test_kernel_matches_twin_across_column_blocks():
     bounds: the state equal after every chunk and block_max a bound on
     every block; the verifies read fewer blocks than whole rows would."""
     _need_cuda()
-    corpus = Path(__file__).resolve().parent / "fixtures_gpt2" / "bench_5M_realistic.txt"
+    corpus = FIXTURES / "bench_5M_realistic.txt"
     table = WordTable.from_counter(count_pretokens([corpus], SPECIALS))
     kern = _kernel_vs_twin(table, SPECIALS, 12_000, 1, 1024)
     steps = int(kern.scalars[hbm_loop.NUM_DONE])
@@ -234,13 +251,7 @@ def test_fused_kernel_matches_twin_random_tables(seed):
 def _wide_file(tmp_path: Path, lines: int, seed: int) -> Path:
     """tests/data/large.txt plus ``lines`` lines of 65-300-byte pre-tokens
     (scripts/wide_lines.py)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "wide_lines", Path(__file__).resolve().parent.parent / "scripts" / "wide_lines.py"
-    )
-    wide = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(wide)
+    wide = _load_by_path("wide_lines", SCRIPTS / "wide_lines.py")
     path = tmp_path / "wide.txt"
     path.write_text((DATA / "large.txt").read_text(encoding="utf-8") + "\n"
                     + "\n".join(wide.wide_lines(lines, seed)) + "\n", encoding="utf-8")
@@ -443,15 +454,6 @@ def test_kernel_select_past_16_bit_ids(case):
         assert (a, b) == (win, 69_000) and lex[a] > 65_535 and lex[b] > 65_535
     if case == "stale":
         assert bool((row_max[above] < top + 3).any())
-
-
-def _load_by_path(name: str, path: Path):
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 @pytest.mark.cuda
@@ -755,13 +757,7 @@ def test_engines_on_cuda_past_the_kernels(tmp_path):
     them, and through the incremental (K1 off) and the bigvocab engines
     with no merge kernel launched, to the native loop's merges."""
     _need_cuda()
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "wide_lines", Path(__file__).resolve().parent.parent / "scripts" / "wide_lines.py"
-    )
-    wide = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(wide)
+    wide = _load_by_path("wide_lines", SCRIPTS / "wide_lines.py")
     path = tmp_path / "wide.txt"
     path.write_text((DATA / "sample.txt").read_text(encoding="utf-8") + "\n"
                     + "\n".join(wide.wide_lines(60, 1)) + "\n", encoding="utf-8")
@@ -863,3 +859,275 @@ def test_sharded_loop_on_cuda_matches_cpu(layout):
     assert np.array_equal(runs[0][0], runs[1][0])
     assert runs[0][1] == runs[1][1]
     assert (runs[0][0][:, 0] >= 0).sum() == 700 - len(base)
+
+
+def _launches() -> dict[str, int]:
+    """The merge kernels' launch counts (K1, K2, K3)."""
+    return {"K1": fused_loop.LAUNCHES["fused_merge_chunk"],
+            "K2": hbm_loop.LAUNCHES["hbm_merge_chunk"],
+            "K3": replay_emit.LAUNCHES["replay_emit_chunk"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "route,kernel,corpus,extra,cut",
+    [
+        ("K2", "K2", FIXTURES / "bench_5M_realistic.txt",
+         dict(vocab_size=4096, min_frequency=2, merge_chunk_size=256), 1000),
+        ("sharded", "K3", DATA / "large.txt",
+         dict(vocab_size=700, min_frequency=1, merge_chunk_size=128, data_shards=4,
+              use_hbm_kernel=True), 300),
+        ("sharded_loop", None, DATA / "large.txt",
+         dict(vocab_size=700, min_frequency=1, merge_chunk_size=128, data_shards=2,
+              vocab_shards=2), 300),
+    ],
+    ids=["k2_replay", "k3_4_shards", "sharded_2x2"],
+)
+def test_checkpointed_training_resumes_on_cuda(tmp_path, route, kernel, corpus, extra, cut):
+    """A training on the card with a checkpoint every chunk, its saved
+    record cut to ``cut`` steps (off the chunk grid), then trained again
+    from it: K2 replays the cut record in its replay mode, the 4-shard
+    route over K3 and the 2 data x 2 vocab sharded loop from their resume;
+    each gives the uncheckpointed run's merges and vocab and launches only
+    its own merge kernel."""
+    _need_cuda()
+    from yabpe_tpu_torch.train import checkpoint as ckpt
+
+    kw = dict(special_tokens=SPECIALS, **extra)
+    full = BBPETrainer(BBPETrainerConfig(**kw)).train([corpus])
+    cfg = BBPETrainerConfig(**kw, checkpoint_dir=str(tmp_path / "ck"), checkpoint_every_chunks=1)
+    BBPETrainer(cfg).train([corpus])
+    record, done = ckpt.load_checkpoint(tmp_path / "ck", cfg)
+    assert done == len(full.merges) and cut % extra["merge_chunk_size"]
+    record[cut:] = -1
+    ckpt.save_checkpoint(tmp_path / "ck", record, cut, cfg)
+    before = _launches()
+    trainer = BBPETrainer(cfg)
+    resumed = trainer.train([corpus])
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    assert trainer.route == route
+    assert resumed.merges == full.merges and resumed.vocab == full.vocab
+    assert {k for k, n in launched.items() if n} == ({kernel} if kernel else set())
+    if route == "sharded_loop":
+        assert trainer.loop_stats["steps"] == len(full.merges) - cut
+
+
+@pytest.fixture(scope="module")
+def owt_4mib(tmp_path_factory):
+    """4 MiB in owt-32k.train's corpus shape (perfbench/corpus.py, seed
+    21) and the native loop's models of it by vocabulary: at 32,000, the
+    cell's, it makes all 31,743 merges at min_frequency 2."""
+    _need_cuda()
+    corpus = _load_by_path("corpus", PERFBENCH / "corpus.py")
+    spec = json.loads((PERFBENCH / "configs" / "owt-32k.json").read_text(encoding="utf-8"))
+    files = corpus.generate(tmp_path_factory.mktemp("owt"), 21, {**spec["corpus"], "bytes": 4 << 20})
+    native = {
+        v: BBPETrainer(BBPETrainerConfig(
+            vocab_size=v, min_frequency=2, special_tokens=SPECIALS, use_native_loop=True,
+        )).train(files)
+        for v in (32000, 8192)
+    }
+    assert len(native[32000].merges) == 32000 - len(Vocab.base(SPECIALS))
+    return files, native
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "route,kernel,extra,vocab,cut",
+    [
+        ("K2", "K2", {}, 32000, 10_000),
+        ("sharded", "K3", dict(data_shards=4, use_hbm_kernel=True), 8192, 7_435),
+        ("sharded_loop", None, dict(data_shards=2, vocab_shards=2), 8192, 7_435),
+    ],
+    ids=["k2_replay", "k3_4_shards", "sharded_2x2"],
+)
+def test_routes_resume_on_4mib_on_cuda(owt_4mib, tmp_path, route, kernel, extra, vocab, cut):
+    """4 MiB of owt-32k.train's corpus shape, each route resumed from a
+    checkpoint of the native loop's first ``cut`` merges: K2 through its
+    replay at the cell's 32,000 (off the chunk grid), the 4-shard K3 route
+    (each call one launch and one memset, every shard called every epoch)
+    and the 2 data x 2 vocab sharded loop (no kernel launched, the live
+    steps counted) at 8,192; each equals the native loop's merges and
+    vocab. Both sharded routes replay a record step by step, so 8,192 is
+    the largest vocabulary at which each case stays within ~20 s on an
+    H100 (at 32,000: 70 s and 32 s)."""
+    from yabpe_tpu_torch.train import checkpoint as ckpt
+
+    files, native = owt_4mib
+    want = native[vocab]
+    cfg = BBPETrainerConfig(vocab_size=vocab, min_frequency=2, special_tokens=SPECIALS, **extra,
+                            checkpoint_dir=str(tmp_path / "ck"), checkpoint_every_chunks=1 << 20)
+    ids = want.vocab
+    record = np.array([(ids[a], ids[b], ids[a + b]) for a, b in want.merges], dtype=np.int32)
+    record[cut:] = -1
+    ckpt.save_checkpoint(tmp_path / "ck", record, cut, cfg)
+    counters = (replay_emit.CALLS, replay_emit.LAUNCHES, replay_emit.MEMSETS)
+    k3_before = [c["replay_emit_chunk"] for c in counters]
+    before = _launches()
+    trainer = BBPETrainer(cfg)
+    model = trainer.train(files)
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    k3_calls, k3_launches, k3_memsets = (
+        c["replay_emit_chunk"] - b for c, b in zip(counters, k3_before)
+    )
+    assert trainer.route == route
+    assert model.merges == want.merges and model.vocab == want.vocab
+    assert {k for k, n in launched.items() if n} == ({kernel} if kernel else set())
+    assert k3_calls == k3_launches == k3_memsets
+    if route == "sharded":
+        assert k3_launches >= 4 * trainer.loop_stats["epochs"]
+    if route == "sharded_loop":
+        assert trainer.loop_stats["steps"] == len(want.merges) - cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ingest", "hbm", "loop"])
+def test_two_processes_on_one_card_over_gloo(mode):
+    """Two processes on the card over gloo (tests/torch_dist_worker.py), 4
+    data shards, two a process: the global ingest of three files, the
+    kernel-sharded loop (K3 on each process's shards, which must launch)
+    and the sharded loop each equal one process's result."""
+    _need_cuda()
+    from yabpe_tpu_torch.pretok.ingest import count_pretokens_raw
+
+    from .torch_dist_worker import CAP, digest, run_pair
+
+    files = [str(DATA / name) for name in ("large.txt", "unicode.txt", "multiline.txt")]
+    if mode == "ingest":
+        # the global ingest's order: process 0's files (0 and 2), then process 1's
+        want = digest(*count_pretokens_raw(
+            [files[0], files[2], files[1]], SPECIALS, chunk_size_bytes=32 << 20,
+            max_workers=1, align_to_newline=True,
+        ))
+    else:
+        table = WordTable.from_counter(count_pretokens(files, SPECIALS, max_workers=1))
+        base = Vocab.base(SPECIALS)
+        want = digest(hbm_driver.run_hbm_merge_loop(
+            table, base, vocab_cap=CAP, num_merges=CAP - len(base), min_frequency=1,
+            device="cuda",
+        ))
+    assert run_pair(mode, files, device="cuda") == {0: want, 1: want}
+
+
+@pytest.mark.cuda
+def test_cli_on_cuda_writes_the_trainers_files(tmp_path):
+    """The CLI with --device cuda, with and without --profile-dir: the
+    saved files equal BBPETrainer.save's for the same config, and the
+    traced run writes its trace and spans."""
+    _need_cuda()
+    from yabpe_tpu_torch.cli import train_bpe
+
+    large = DATA / "large.txt"
+    args = [str(large), "--vocab-size", "1024", "--device", "cuda"]
+    assert train_bpe.main([*args, "-o", str(tmp_path / "cli")]) == 0
+    assert train_bpe.main([*args, "-o", str(tmp_path / "traced"),
+                           "--profile-dir", str(tmp_path / "trace")]) == 0
+    trainer = BBPETrainer(BBPETrainerConfig(
+        vocab_size=1024, min_frequency=2, chunk_size_bytes=20 << 20, special_tokens=SPECIALS,
+        align_chunks_to_newline=True,
+    ))
+    trainer.train([large])
+    trainer.save(tmp_path / "api")
+    for out in ("cli", "traced"):
+        for name in ("vocab.json", "merges.txt", "special_tokens.json"):
+            assert (tmp_path / out / name).read_bytes() == (tmp_path / "api" / name).read_bytes()
+    for name in ("trace.json", "spans.json"):
+        assert (tmp_path / "trace" / name).stat().st_size > 0
+
+
+@pytest.mark.cuda
+def test_gpt2_golden_ids_on_cuda(tmp_path):
+    """GPT-2's derived 50,000-merge model with compute_device="cuda":
+    encode, encode_batch(device=True) and encode_file on host threads and
+    through the device scan give the golden ids of the 11 snippets and the
+    two special-token texts, with and without <|endoftext|>, and the scans
+    ran on the card."""
+    _need_cuda()
+    from yabpe_tpu_torch import BBPETokenizer
+    from yabpe_tpu_torch.io import gpt2
+
+    vocab = gpt2.load_gpt2_vocab(FIXTURES / "gpt2_vocab.json")
+    merges = gpt2.derive_gpt2_merges(vocab)
+    golden = json.loads((FIXTURES / "golden_encode" / "gpt2_golden.json").read_text(encoding="utf-8"))
+    snippets = golden["snippets"]
+    cases = list(zip(snippets["texts"], snippets["with_special"], snippets["no_special"]))
+    plain = BBPETokenizer(vocab, merges, [], compute_device="cuda")
+    for key in ("special_trailing", "special_double"):
+        entry = golden[key]
+        cases.append((plain.decode(entry["no_special"]), entry["with_special"], entry["no_special"]))
+    texts = [text for text, _, _ in cases]
+    paths = [tmp_path / f"{i}.txt" for i in range(len(texts))]
+    for path, text in zip(paths, texts):
+        path.write_bytes(text.encode("utf-8"))
+    for specials, pick in ((SPECIALS, 1), ([], 2)):
+        want = [case[pick] for case in cases]
+        tok = BBPETokenizer(vocab, merges, specials, compute_device="cuda")
+        assert [tok.encode(t) for t in texts] == want
+        assert tok.encode_batch(texts, device=True) == want
+        for device in (False, True):
+            assert [tok.encode_file(p, device=device).tolist() for p in paths] == want
+        enc = tok._get_device_encoder(None)
+        assert enc.stats["tiles"] > 0 and enc._sorted_keys.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_bench_harness_5m_legs_on_cuda():
+    """The bench harness's 5 MB legs through its own functions (one timed
+    run a route): the realistic text on K2 and TinyStories on K1, each
+    equal to the native loop (the harness raises otherwise), GPT-2's
+    encode on the card, and bench.py's four keys in its last line."""
+    _need_cuda()
+    import bench_torch
+
+    before = _launches()
+    real = bench_torch.train_leg(bench_torch.REAL_5M, "train_real5m", reps=1)
+    repeated = bench_torch.train_leg(bench_torch.FIVE_M, "train_5m_repeated", reps=1)
+    enc = bench_torch.encode_leg()
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    assert real["device"]["route"] == "K2" and repeated["device"]["route"] == "K1"
+    assert launched["K1"] > 0 and launched["K2"] > 0
+    assert enc["batch_device"]["tokens"] > 0 and enc["batch_device"]["peak_device_bytes"] > 0
+    line = bench_torch.result_line(real)
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"}
+    assert line["metric"] == bench_torch.METRIC and line["unit"] == "bytes/s"
+    assert line["value"] > 0 and line["vs_baseline"] > 0
+
+
+@pytest.mark.cuda
+def test_trained_model_round_trips_on_cuda(tmp_path):
+    """TinyStories 5 MB at vocab 1000 (the settings of the JAX package's
+    snapshot tests/_snapshots/test_train_bpe_special_tokens.pkl) on the
+    card: K1 runs and K2 does not, the merges and vocab equal the snapshot
+    and the native loop, the saved files equal the native loop's; then
+    from_file, encode and decode give back the first 1 MiB and the golden
+    snippets."""
+    _need_cuda()
+    from yabpe_tpu_torch import BBPETokenizer
+
+    text_file = FIXTURES / "tinystories_sample_5M.txt"
+    kw = dict(vocab_size=1000, min_frequency=1, max_workers=1, chunk_size_bytes=1 << 30,
+              special_tokens=SPECIALS)
+    before = _launches()
+    trainer = BBPETrainer(BBPETrainerConfig(**kw))
+    model = trainer.train([text_file])
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    assert trainer.route == "K1" and launched["K1"] > 0 and launched["K2"] == 0
+    snapshot = Path(__file__).resolve().parent / "_snapshots" / "test_train_bpe_special_tokens.pkl"
+    with open(snapshot, "rb") as f:
+        want = pickle.load(f)
+    assert model.merges == want["merges"]
+    assert set(model.vocab) == want["vocab_values"] and set(model.vocab.values()) == want["vocab_keys"]
+    native = BBPETrainer(BBPETrainerConfig(**kw, use_native_loop=True))
+    native_model = native.train([text_file])
+    assert native_model.merges == model.merges and native_model.vocab == model.vocab
+    trainer.save(tmp_path / "device")
+    native.save(tmp_path / "native")
+    for name in ("vocab.json", "merges.txt", "special_tokens.json"):
+        assert (tmp_path / "device" / name).read_bytes() == (tmp_path / "native" / name).read_bytes()
+    tok = BBPETokenizer.from_file(tmp_path / "device")
+    with open(text_file, encoding="utf-8") as f:
+        text = f.read(1 << 20)
+    assert tok.decode(tok.encode(text)) == text
+    golden = json.loads((FIXTURES / "golden_encode" / "gpt2_golden.json").read_text(encoding="utf-8"))
+    for snippet in golden["snippets"]["texts"]:
+        assert tok.decode(tok.encode(snippet)) == snippet

@@ -10,12 +10,7 @@ killed and the test fails, so no test can hang the suite.
 from __future__ import annotations
 
 import hashlib
-import os
-import socket
-import subprocess
-import sys
 
-import numpy as np
 import pytest
 
 from yabpe_tpu.pretok.ingest import count_pretokens_raw as jax_count_pretokens_raw
@@ -24,58 +19,13 @@ from yabpe_tpu_torch.core.wordtable import WordTable
 from yabpe_tpu_torch.pretok.ingest import count_pretokens
 from yabpe_tpu_torch.train.hbm_driver import run_hbm_merge_loop
 
-from .common import DATA, REPO
+from .common import DATA
+from .torch_dist_worker import digest as _digest
+from .torch_dist_worker import run_pair as _run_pair
 
-WORKER = REPO / "tests" / "torch_dist_worker.py"
-TIMEOUT_S = 150
 SPECIALS = ["<|endoftext|>"]
 CAP = 400
 FILES = [str(DATA / "large.txt"), str(DATA / "unicode.txt"), str(DATA / "multiline.txt")]
-
-
-def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
-def _run_pair(mode: str, files: list[str]) -> dict[int, str]:
-    """Both processes' RESULT digests; fails on an error or the time limit."""
-    port = _free_port()
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "OMP_NUM_THREADS": "1"}
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(WORKER), str(rank), "2", str(port), mode, *files],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True,
-        )
-        for rank in range(2)
-    ]
-    results, errors = {}, []
-    try:
-        for proc in procs:
-            out, err = proc.communicate(timeout=TIMEOUT_S)
-            if proc.returncode != 0:
-                errors.append(err[-2000:])
-            for line in out.splitlines():
-                if line.startswith("RESULT"):
-                    _, rank, value = line.split()
-                    results[int(rank)] = value
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"{mode}: the processes did not finish in {TIMEOUT_S} s")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    assert not errors, "\n".join(errors)
-    return results
-
-
-def _digest(*arrays) -> str:
-    h = hashlib.sha256()
-    for a in arrays:
-        h.update(a if isinstance(a, bytes) else np.ascontiguousarray(a).tobytes())
-    return h.hexdigest()
 
 
 @pytest.fixture(scope="module")

@@ -21,9 +21,6 @@ import json
 
 import pytest
 
-# The benchmark harness's derivation, which chip_smoke.py runs on the card
-# too (the harness imports no JAX, and runs nothing on import).
-from bench_torch import derive_gpt2_merges
 from yabpe_tpu import BBPETokenizer as JaxTokenizer
 from yabpe_tpu_torch import BBPETokenizer
 from yabpe_tpu_torch.io import gpt2
@@ -38,7 +35,7 @@ MODES = ["with_special", "no_special"]
 @pytest.fixture(scope="module")
 def gpt2_model():
     vocab = gpt2.load_gpt2_vocab(LOCAL_FIXTURES / "gpt2_vocab.json")
-    return vocab, derive_gpt2_merges(vocab)
+    return vocab, gpt2.derive_gpt2_merges(vocab)
 
 
 @pytest.fixture(scope="module")

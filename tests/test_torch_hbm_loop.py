@@ -282,28 +282,6 @@ def test_row_key_model_orders_as_the_tuple_order(ctas):
         assert dead == sorted(dead) and dead[-1] < hbm_loop._pack_key(c, 0, 0)
 
 
-
-def test_twin_tally_counts_live_symbols():
-    """The twin's byte tally, which chip_smoke.py's bounds read, charges a
-    changed word its live symbols (read and written) and its freq, not its
-    padded row: one step of (a, b) on a table padded past 90 symbols."""
-    base = Vocab.base([])
-    table = WordTable.from_counter(Counter({b"ab" * 40: 3, b"xy": 5, b"z" * 90: 1}))
-    assert table.width >= 90  # padded past the 80 live symbols below
-    v = 300
-    state = hbm_driver.state_from_numpy(
-        table.words, table.freqs, list(base.tokens()), v, "cpu", num_merges=1
-    )
-    tally: dict[str, int] = {}
-    hbm_loop.hbm_merge_chunk_reference(
-        state, chunk_start=0, chunk_size=1, num_merges=1, min_frequency=1, tally=tally
-    )
-    assert state.merges[0, :2].tolist() == [ord("a"), ord("b")]
-    # a select (8V), the 80 live symbols of the one changed word and its
-    # freq, and three changed cells: (a, b), (b, a) and (ab, ab)
-    assert tally["affected_words"] == 1
-    assert tally["bytes"] == 8 * v + 8 * 80 + 4 + 8 * 3
-
 def test_no_hidden_cpu():
     """A CUDA request never runs on the CPU: run_hbm_merge_loop raises without a
     card, and the wrapper takes the twin for CPU tensors only."""

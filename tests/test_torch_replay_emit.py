@@ -101,9 +101,8 @@ def test_twin_matches_jax_kernel(seed):
         words_list, freqs, chain, width, cps=64, cps0=128
     )
     words, fr, ch = _port_inputs(words_list, freqs, chain, width)
-    tally: dict[str, int] = {}
     out, *logs, ok, cursor = replay_emit.replay_emit_chunk_reference(
-        words, fr, ch, cps=64, cps0=128, tally=tally
+        words, fr, ch, cps=64, cps0=128
     )
     assert np.array_equal(out.numpy(), want_words)
     assert ok.tolist() == want_ok.tolist() == [1] * len(chain)
@@ -113,11 +112,6 @@ def test_twin_matches_jax_kernel(seed):
     oracle = _oracle_words(words_list, chain)
     for i, w in enumerate(oracle):
         assert out[i, : len(w)].tolist() == w
-    assert tally["affected_words"] > 0 and tally["cells"] > 0
-    assert tally["cells"] == int(cursor.sum())
-    # the shard read and written, freqs, chain, the cells, cursor and ok
-    assert tally["bytes"] == 8 * words.numel() + 4 * n + 12 * len(chain) + 12 * tally[
-        "cells"] + 8 * len(chain)
 
 
 def test_overflow_flags_match_jax():
