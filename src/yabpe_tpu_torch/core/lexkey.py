@@ -14,6 +14,10 @@ rule ("ab" < "abc") for free.
 The numpy helpers build the initial state on the host; the torch functions
 are the plain versions that the merge kernels' twins and the sharded
 loop's vocabulary update use on any device, without a host sync.
+
+K2 (csrc/hbm_loop.cu) also keeps a 64-bit **prefix key** per token
+(:func:`prefix_keys`), so that its dedup compare orders most tokens
+against the merged string by one integer compare.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ import numpy as np
 import torch
 
 BYTE_PAD: int = -1
+
+#: Bytes of a token that its prefix key holds (csrc/hbm_loop.cu's kKeyBytes).
+KEY_BYTES: int = 7
 
 
 def initial_token_matrix(
@@ -71,6 +78,28 @@ def rows_vs_query(
     row_val = token_bytes.gather(1, first[:, None])[:, 0]
     less = any_diff & (row_val < query[first])
     return less, ~any_diff
+
+
+def prefix_keys(rows: torch.Tensor) -> torch.Tensor:
+    """The prefix key of each token row of ``rows`` [..., L] (int32 bytes,
+    -1 padded): its first KEY_BYTES bytes big-endian in 9 bits each, byte
+    + 1 or 0 past the token's end, then in the lowest bit whether the
+    token is longer than KEY_BYTES bytes. A row of padding keys 0.
+
+    As unsigned 64-bit integers, two keys that differ order as their
+    tokens' byte strings do (a prefix first), and equal keys are equal
+    strings unless both tokens are longer than KEY_BYTES bytes. Returns
+    int64 [...] holding those bits, so a key whose first byte is 0xFF
+    reads as negative. Takes a numpy array's rows through
+    ``torch.from_numpy``.
+    """
+    head = rows[..., :KEY_BYTES].long() + 1
+    key = torch.zeros(rows.shape[:-1], dtype=torch.int64, device=rows.device)
+    for i in range(head.shape[-1]):
+        key |= head[..., i] << (64 - 9 * (i + 1))
+    if rows.shape[-1] > KEY_BYTES:
+        key |= (rows[..., KEY_BYTES] != BYTE_PAD).long()
+    return key
 
 
 def concat_token_bytes(
@@ -129,6 +158,8 @@ __all__ = [
     "BYTE_PAD",
     "initial_token_matrix",
     "initial_lex_ranks",
+    "KEY_BYTES",
+    "prefix_keys",
     "rows_vs_query",
     "concat_token_bytes",
     "insert_lex_rank",

@@ -12,14 +12,17 @@
 //                              (NB = block_count(V), merge_apply.cuh)
 //   token_bytes [V, L] int32   token byte strings, -1 padded
 //   token_len   [V], lex_rank [V] int32 (dense lex rank, -1 = inactive)
+//   token_key   [V4]   u64     each token's prefix key (prefix_key below),
+//                              V4 = V rounded up to a multiple of 4
 //   merges      [M, 3] int32   (a, b, c) per step, -1 where not taken
 //   scalars     [8]    int32   next_id, stopped, num_done, this step's
 //                              (a, b, c) for the apply kernel, and the
 //                              replay divergence flag
-//   stats       [11]   int32   verify rounds, rows verified, the step
+//   stats       [12]   int32   verify rounds, rows verified, the step
 //                              kernel's time by phase, the replayed
-//                              steps and their time, and the column
-//                              blocks the verifies read (enum Stat)
+//                              steps and their time, the column blocks
+//                              the verifies read, and the token rows the
+//                              dedup compare read (enum Stat)
 // Each step is the JAX kernel's chain: select the pair with the highest
 // count (ties to the lexicographically greatest (left, right) byte
 // strings), grow the vocab (merged bytes, dedup against live tokens,
@@ -102,22 +105,41 @@
 // rounds, the blocks read and the tightened row_max and block_max are
 // held to it.
 //
+// The vocab phases. After the select, the merged string (rows a and b)
+// is compared with every live token, to find a duplicate and the count
+// of tokens below it (its lex rank); then the ranks at or above that are
+// bumped. Reading a token row a thread at a time made that a chain of
+// dependent loads, n / 4,096 deep, that grew with the live ids. Instead
+// each token has a 64-bit prefix key (token_key, prefix_key below), kept
+// beside its bytes. Right after its wait on the previous kernel, one
+// thread of each CTA starts a bulk asynchronous copy (TMA, cp.async.bulk
+// on an mbarrier) of its stripe's keys into shared memory, which lands
+// while the select runs; the compare waits on that barrier, then orders
+// each key against the merged string's in shared memory. Only equal keys
+// of two strings longer than the key send a thread to the token's row
+// (stats kTieRows counts those rows). The bump takes the stripe's ranks
+// from its row keys, which the bound pass packed from lex_rank, so it
+// loads nothing and stores only the ranks that change. A cluster is
+// given room for the keys where it fits with it (pick_cluster: 16 CTAs
+// hold them up to V = 131,072 in 128 KB, 8 up to ~113,000); without the
+// room the compare reads the keys from device memory, a batch of loads
+// in flight at a time. yabpe_hbm_select, the select alone, copies none.
+//
 // What bounds it now (H100 at 700 W, 100 MiB, PERF.md section 5). A step
-// is a chain of dependent latencies, not bytes: 18 us at vocab 100,001
-// and 15 us at 32,000 of step kernel, 1.36-1.42 verify rounds a step.
-// Each round is a bound pass over the stripe's row_max and lex_rank (3.1
-// and 2.6 us a step, the first round's; later rounds reuse the keys in
-// shared memory), the verify (6.9 and 6.4 us a step: block 0 and the
-// bounds, 2.3 and 2.7 blocks a row in all, the lex rank, two block
-// reductions, a cluster barrier of ~0.65 us); then rows a and b and the
-// stripe's tokens for the dedup compare, and the vocab update (8.4 and
-// 5.2 us a step: they grow with the live ids). The apply kernel and
-// the hand-offs take the other ~7 us: it scans the whole word table
-// (N*W*4 bytes, ~25 MB, inside the 50 MB L2) every step to find the few
-// words that hold the pair. PDL saves about 1.8 us a step over plain
-// stream order. Left for later: an inverted index (pair -> words) in
-// place of that scan, shared with replay_emit.cu through merge_apply.cuh,
-// and the compare over the live ids.
+// is a chain of dependent latencies, not bytes: 13.6 us of step kernel at
+// vocab 100,001, 1.36-1.42 verify rounds a step. Each round is a bound
+// pass over the stripe's row_max and lex_rank (3.2 us a step at 100k and
+// 2.8 at 32,000, the first round's; later rounds reuse the keys in shared
+// memory), the verify (6.7 and 6.5 us a step: block 0 and the bounds, 2.3
+// and 2.7 blocks a row in all, the lex rank, two block reductions, a
+// cluster barrier of ~0.6 us); then the vocab phases, 3.7 and 3.3 us a
+// step and nearly flat in the live ids: rows a and b, the compare in
+// shared memory, the exchange and its cluster barrier, the bump and the
+// record. The apply kernel and the hand-offs take the other ~7 us;
+// visiting only the words that hold the pair did not shorten them
+// (PERF.md), so the kernel boundaries hold most of it. PDL saves about
+// 1.8 us a step over plain stream order. Left for later: those hand-offs
+// (one persistent kernel).
 //
 // Exactness of the table. The apply step (merge_apply.cuh, shared with
 // fused_loop.cu and replay_emit.cu), with its table sink, keeps counts
@@ -179,6 +201,7 @@ enum Stat : int {
   kReplayed = 8,   // replayed steps (in none of the slots above)
   kNsReplay = 9,   // the whole step kernel of the replayed steps
   kBlocksRead = 10,  // column blocks the verifies read in full
+  kTieRows = 11,     // token rows the dedup compare read (live steps)
 };
 
 // yabpe_hbm_select's output.
@@ -188,6 +211,7 @@ enum Out : int {
 };
 
 constexpr int kStepThreads = 256;
+constexpr int kMaxCtas = 16;  // CTAs of the step kernel's cluster, at most
 constexpr int kStepWarps = kStepThreads / 32;
 using yabpe::block_count;
 using yabpe::kBlockCols;
@@ -557,6 +581,64 @@ __device__ int verify_row(const int* row, int* bounds, const int* lex_rank,
   return best;
 }
 
+// A token's prefix key (core/lexkey.py::prefix_keys) from its -1 padded
+// bytes: the first kKeyBytes bytes big-endian in 9 bits each, byte + 1 or
+// 0 past its end, and in the lowest bit whether it is longer than
+// kKeyBytes bytes. Two keys that differ order as the byte strings do (a
+// prefix first); equal keys are equal strings unless both strings are
+// longer than kKeyBytes bytes. No key is ~0 (a field holds at most 256).
+constexpr int kKeyBytes = 7;
+
+__device__ __forceinline__ u64 prefix_key(const int* bytes, int L) {
+  u64 k = 0;
+#pragma unroll
+  for (int i = 0; i < kKeyBytes; ++i)
+    if (i < L) k |= static_cast<u64>(bytes[i] + 1) << (64 - 9 * (i + 1));
+  if (L > kKeyBytes && bytes[kKeyBytes] >= 0) k |= 1ull;
+  return k;
+}
+
+// The lex rank that a row key holds (pack_row_key's lex + 1 field).
+__device__ __forceinline__ int row_key_lex(u64 k) {
+  constexpr int kBits = yabpe::kRowCountShift - yabpe::kRowSlotBits;
+  return static_cast<int>((k >> yabpe::kRowSlotBits) & ((1ull << kBits) - 1)) - 1;
+}
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread starts a bulk asynchronous copy (TMA) of `bytes` (a multiple
+// of 16, both ends 16-byte aligned) from device memory to this CTA's
+// shared memory, to complete on the barrier `bar` (initialised here for
+// one phase; bytes 0 completes it at once).
+__device__ __forceinline__ void stage_async(void* dst, const void* src,
+                                            unsigned bytes, u64* bar) {
+  const unsigned b = smem_address(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(b), "r"(bytes) : "memory");
+  if (bytes != 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        ::"r"(smem_address(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
+}
+
+// Waits until the copy of stage_async has landed; its bytes are then
+// visible to the waiting thread.
+__device__ __forceinline__ void wait_staged(u64* bar) {
+  const unsigned b = smem_address(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(b), "r"(0u) : "memory");
+}
+
 // Lexicographic order of a token row (int4s, its first one `v` already
 // loaded) against the merged bytes: -1 below, 0 equal, 1 above. Rows are
 // -1 padded, so a prefix sorts first.
@@ -578,16 +660,21 @@ __device__ __forceinline__ int compare_token(const int4* row, int4 v,
 // (a, b, count, rounds, rows verified, CTAs, blocks read) with a = b = -1
 // and count 0 for a stop, and leaves scalars, stats and the vocab as they
 // are. A step below `replay_until` replays its record (the note at the
-// top).
+// top). `key_cap` is the rows of prefix keys that the dynamic shared
+// memory holds past the row keys: a stripe's whole share where the cluster
+// has room for it, staged there during the select; 0 where it has not,
+// and then the compare reads the keys from device memory.
 __global__ void __launch_bounds__(kStepThreads, 1)
     step_kernel(const int* counts, int* row_max, int* block_max, int* lex_rank,
-                int* token_bytes, int* token_len, int* merges, int* scalars,
-                int* stats, int* out, int V, int L, int step,
-                int min_frequency, int replay_until) {
+                int* token_bytes, int* token_len, u64* token_key, int* merges,
+                int* scalars, int* stats, int* out, int V, int L, int step,
+                int min_frequency, int replay_until, int key_cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ u64 red[66];
   __shared__ u64 pub_top1, pub_top2, pub_exact;
-  __shared__ int pub_col, pub_nless, pub_eq, s_nless, s_eq;
+  __shared__ __align__(8) u64 key_bar;  // the staged keys' barrier
+  __shared__ int pub_col, s_nless, s_eq, s_ties;
+  __shared__ int all_nless[kMaxCtas], all_eq[kMaxCtas];  // by CTA
   __shared__ VerifyScratch vs;
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -595,8 +682,8 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int rank = static_cast<int>(cluster.block_rank());
   const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31;
   u64* keys = reinterpret_cast<u64*>(smem);  // this stripe's bound keys
-  int* merged = reinterpret_cast<int*>(
-      smem + sizeof(u64) * static_cast<size_t>(stripe_rows(V, ctas)));
+  u64* staged = keys + stripe_rows(V, ctas);  // its prefix keys, key_cap rows
+  int* merged = reinterpret_cast<int*>(staged + key_cap);
 
   wait_prior_grid();
   launch_next_grid();
@@ -605,6 +692,12 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int n = scalars[kNextId];
   const int sz = stripe_rows(n, ctas);
   const int lo = min(rank * sz, n), hi = min(lo + sz, n), len = hi - lo;
+  // The stripe's prefix keys, whole 16 bytes (token_key has rows to a
+  // multiple of 4), land in shared memory while the select runs.
+  const bool stage = key_cap > 0;
+  if (stage && tid == 0)
+    stage_async(staged, token_key + lo, static_cast<unsigned>((len + 1) & ~1) * 8u,
+                &key_bar);
   const int thr = max(min_frequency, 1);
   const long long t_step = global_ns();
   long long t_phase = t_step, ns_bound = 0, ns_verify = 0, ns_barrier = 0;
@@ -734,6 +827,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   }
 
   if (out != nullptr || stop) {
+    if (stage && tid == 0) wait_staged(&key_bar);  // no copy outlives the CTA
     if (rank == 0 && tid == 0) {
       if (out != nullptr) {
         out[kOutA] = stop ? -1 : a;
@@ -762,8 +856,16 @@ __global__ void __launch_bounds__(kStepThreads, 1)
 
   // Dedup and lex rank: this stripe's live tokens against the merged
   // bytes, built from rows a and b and their lengths, all loaded at once
-  // (L is a multiple of 4, so a token row is whole int4s).
+  // (L is a multiple of 4, so a token row is whole int4s). A token's
+  // prefix key against the merged string's decides where they differ;
+  // only where they are equal and both strings are longer than the key is
+  // the token's row read and the rest compared.
   t_phase = global_ns();
+  // The exchange below writes into other CTAs' shared memory, which is
+  // safe once every CTA of the cluster has met at a cluster barrier. A
+  // live step's rounds have; a replayed step meets here, its wait behind
+  // the compare.
+  if (replay) cluster_arrive();
   int* row_a = merged + L;
   int* row_b = row_a + L;
   const int la = token_len[a], lb = token_len[b];
@@ -774,61 +876,92 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   if (tid == 0) {
     s_nless = 0;
     s_eq = -1;
+    s_ties = 0;
   }
   __syncthreads();
   for (int d = tid; d < L; d += T)
     merged[d] = d < la ? row_a[d] : d < la + lb ? row_b[d - la] : -1;
   __syncthreads();
-  int less = 0;
-  for (int t = lo + tid; t < hi; t += T) {
-    const int4* row = reinterpret_cast<const int4*>(token_bytes + static_cast<size_t>(t) * L);
-    const int c = compare_token(row, row[0], merged, L);
-    if (c == 0) atomicMax(&s_eq, t);  // token strings are unique
-    less += c < 0;
+  const u64 mkey = prefix_key(merged, L);
+  // The stripe's keys, read in batches: all of a batch's loads issued
+  // before any is compared, with no branch but on an equal key (a row
+  // past the stripe reads as ~0, which no key equals or exceeds). Called
+  // on the staged copy, or where the cluster had no room for it on device
+  // memory, so that each call reads one known memory space.
+  int less = 0, ties = 0;
+  auto compare_keys = [&](const u64* tk) {
+    for (int base = tid; base < len; base += kBatch * T) {
+      u64 k[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int j = base + u * T;
+        k[u] = j < len ? tk[j] : ~0ull;
+      }
+      unsigned equal = 0;
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        less += k[u] < mkey;
+        equal |= static_cast<unsigned>(k[u] == mkey) << u;
+      }
+      for (; equal != 0; equal &= equal - 1) {
+        const int t = lo + base + (__ffs(equal) - 1) * T;
+        int c = 0;
+        if (mkey & 1ull) {  // both longer than the key: compare the rest
+          const int4* row =
+              reinterpret_cast<const int4*>(token_bytes + static_cast<size_t>(t) * L);
+          c = compare_token(row, row[0], merged, L);
+          ++ties;
+        }
+        if (c == 0) atomicMax(&s_eq, t);  // token strings are unique
+        less += c < 0;
+      }
+    }
+  };
+  if (stage) {
+    wait_staged(&key_bar);
+    compare_keys(staged);
+  } else {
+    compare_keys(token_key + lo);
   }
   less = warp_sum(less);
+  ties = warp_sum(ties);
   if (lane == 0 && less) atomicAdd(&s_nless, less);
+  if (lane == 0 && ties) atomicAdd(&s_ties, ties);
   __syncthreads();
-  if (tid == 0) {
-    pub_nless = s_nless;
-    pub_eq = s_eq;
+  // Each CTA writes its count and duplicate into its slot of every CTA's
+  // arrays, so that after the barrier each reads its own shared memory.
+  if (replay) cluster_wait();
+  if (tid < ctas) {
+    *cluster.map_shared_rank(&all_nless[rank], tid) = s_nless;
+    *cluster.map_shared_rank(&all_eq[rank], tid) = s_eq;
   }
+  // Each CTA adds its own rows, as its verifies' blocks.
+  if (tid == 0 && !replay && s_ties != 0) atomicAdd(&stats[kTieRows], s_ties);
   cluster.sync();
-  int ins = 0, eq = -1;
-  if (lane < ctas) {
-    ins = *cluster.map_shared_rank(&pub_nless, lane);
-    eq = *cluster.map_shared_rank(&pub_eq, lane);
-  }
+  int ins = lane < ctas ? all_nless[lane] : 0;
+  int eq = lane < ctas ? all_eq[lane] : -1;
   ins = warp_sum(ins);
   for (int o = 16; o > 0; o >>= 1) eq = max(eq, __shfl_xor_sync(kFullMask, eq, o));
-  cluster_arrive();  // no shared memory of another CTA is read below
+  cluster_arrive();  // no shared memory of another CTA is touched below
   const long long ns_compare = global_ns() - t_phase;
   t_phase = global_ns();
 
-  // Vocab update: a new token's bytes, length and lex rank, and the ranks
-  // above it bumped.
+  // Vocab update: a new token's bytes, length, prefix key and lex rank,
+  // and the ranks above it bumped. A live step takes the stripe's ranks
+  // from its row keys, which the bound pass packed from lex_rank, so it
+  // only stores; a replayed step, which packs no row key, loads them.
   const bool grow = eq < 0;
   if (grow) {
-    // The stripe's ranks in int4s (lo is a multiple of 4), then the tail.
-    int4* lx = reinterpret_cast<int4*>(lex_rank + lo);
-    const int len4 = len >> 2;
-    for (int j = tid; j < len4; j += T) {
-      int4 r = lx[j];
-      r.x += r.x >= ins;
-      r.y += r.y >= ins;
-      r.z += r.z >= ins;
-      r.w += r.w >= ins;
-      lx[j] = r;
-    }
-    for (int t = lo + 4 * len4 + tid; t < hi; t += T) {
-      const int r = lex_rank[t];
-      if (r >= ins) lex_rank[t] = r + 1;
+    for (int i = tid; i < len; i += T) {
+      const int r = replay ? lex_rank[lo + i] : row_key_lex(keys[i]);
+      if (r >= ins) lex_rank[lo + i] = r + 1;
     }
     if (rank == 0 && n < V) {
       for (int d = tid; d < L; d += T)
         token_bytes[static_cast<size_t>(n) * L + d] = merged[d];
       if (tid == 0) {
         token_len[n] = la + lb;
+        token_key[n] = mkey;
         lex_rank[n] = ins;
       }
     }
@@ -847,26 +980,28 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     scalars[kSelB] = b;
     scalars[kSelC] = c;
     scalars[kNextId] = n + (grow ? 1 : 0);
-    scalars[kNumDone] += 1;
+    // Adds whose result is unused: reductions in memory, so the thread
+    // waits on no load before the last barrier, nor the kernel's end.
+    atomicAdd(&scalars[kNumDone], 1);
     if (replay) {
-      stats[kReplayed] += 1;
+      atomicAdd(&stats[kReplayed], 1);
     } else {
-      stats[kRounds] += rounds;
-      stats[kVerified] += verified;
-      stats[kNsBound] += static_cast<int>(ns_bound);
-      stats[kNsVerify] += static_cast<int>(ns_verify);
-      stats[kNsCompare] += static_cast<int>(ns_compare);
-      stats[kNsBarrier] += static_cast<int>(ns_barrier);
+      atomicAdd(&stats[kRounds], rounds);
+      atomicAdd(&stats[kVerified], verified);
+      atomicAdd(&stats[kNsBound], static_cast<int>(ns_bound));
+      atomicAdd(&stats[kNsVerify], static_cast<int>(ns_verify));
+      atomicAdd(&stats[kNsCompare], static_cast<int>(ns_compare));
+      atomicAdd(&stats[kNsBarrier], static_cast<int>(ns_barrier));
     }
   }
   cluster_wait();
   if (rank == 0 && tid == 0) {
     const long long now = global_ns();
     if (replay) {
-      stats[kNsReplay] += static_cast<int>(now - t_step);
+      atomicAdd(&stats[kNsReplay], static_cast<int>(now - t_step));
     } else {
-      stats[kNsVocab] += static_cast<int>(now - t_phase);
-      stats[kNsStep] += static_cast<int>(now - t_step);
+      atomicAdd(&stats[kNsVocab], static_cast<int>(now - t_phase));
+      atomicAdd(&stats[kNsStep], static_cast<int>(now - t_step));
     }
   }
 }
@@ -890,55 +1025,71 @@ __global__ void __launch_bounds__(kApplyThreads)
   yabpe::merge_word(w, W, freqs[i], a, b, scalars[kSelC], sink);
 }
 
-// Dynamic shared memory: the stripe's keys, then the merged bytes and
-// token rows a and b.
-size_t step_smem_bytes(int V, int L, int ctas) {
-  return sizeof(u64) * static_cast<size_t>(stripe_rows(V, ctas)) +
+// Dynamic shared memory: the stripe's row keys, `key_cap` rows of staged
+// prefix keys, then the merged bytes and token rows a and b.
+size_t step_smem_bytes(int V, int L, int ctas, int key_cap) {
+  return sizeof(u64) * (static_cast<size_t>(stripe_rows(V, ctas)) + key_cap) +
          3 * sizeof(int) * static_cast<size_t>(L);
 }
 
 // The cluster for this problem: 16 CTAs where a cluster of 16 fits on the
-// card, else 8; cudaErrorLaunchOutOfResources where neither does.
-cudaError_t pick_cluster(int V, int L, int* ctas_out, size_t* smem_out) {
+// card, else 8; cudaErrorLaunchOutOfResources where neither does. With
+// `stage`, each size is tried first with room for the stripe's prefix
+// keys (*key_cap_out = the stripe's rows), then without (0), so the
+// staging never costs a cluster its 16 CTAs.
+cudaError_t pick_cluster(int V, int L, bool stage, int* ctas_out,
+                         int* key_cap_out, size_t* smem_out) {
   cudaError_t err = cudaFuncSetAttribute(
       step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  const int sizes[2] = {16, 8};
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, step_kernel);
+  int dev = 0, optin = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const int sizes[2] = {kMaxCtas, 8};
   for (int ctas : sizes) {
-    const size_t smem = step_smem_bytes(V, L, ctas);
-    err = cudaFuncSetAttribute(step_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(ctas);
-    cfg.blockDim = dim3(kStepThreads);
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = ctas;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, step_kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters >= 1) {
-      *ctas_out = ctas;
-      *smem_out = smem;
-      return cudaSuccess;
+    for (int staged = stage ? 1 : 0; staged >= 0; --staged) {
+      const int key_cap = staged ? stripe_rows(V, ctas) : 0;
+      const size_t smem = step_smem_bytes(V, L, ctas, key_cap);
+      if (smem + fa.sharedSizeBytes > static_cast<size_t>(optin)) continue;
+      err = cudaFuncSetAttribute(step_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(ctas);
+      cfg.blockDim = dim3(kStepThreads);
+      cfg.dynamicSmemBytes = smem;
+      cudaLaunchAttribute attr;
+      attr.id = cudaLaunchAttributeClusterDimension;
+      attr.val.clusterDim.x = ctas;
+      attr.val.clusterDim.y = 1;
+      attr.val.clusterDim.z = 1;
+      cfg.attrs = &attr;
+      cfg.numAttrs = 1;
+      int clusters = 0;
+      err = cudaOccupancyMaxActiveClusters(&clusters, step_kernel, &cfg);
+      if (err != cudaSuccess) return err;
+      if (clusters >= 1) {
+        *ctas_out = ctas;
+        *key_cap_out = key_cap;
+        *smem_out = smem;
+        return cudaSuccess;
+      }
     }
   }
   return cudaErrorLaunchOutOfResources;
 }
 
-cudaError_t launch_step(int ctas, size_t smem, cudaStream_t st,
+cudaError_t launch_step(int ctas, int key_cap, size_t smem, cudaStream_t st,
                         const int* counts, int* row_max, int* block_max,
-                        int* lex_rank,
-                        int* token_bytes, int* token_len, int* merges,
-                        int* scalars, int* stats, int* out, int V, int L,
-                        int step, int min_frequency, int replay_until) {
+                        int* lex_rank, int* token_bytes, int* token_len,
+                        u64* token_key, int* merges, int* scalars, int* stats,
+                        int* out, int V, int L, int step, int min_frequency,
+                        int replay_until) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(kStepThreads);
@@ -954,8 +1105,9 @@ cudaError_t launch_step(int ctas, size_t smem, cudaStream_t st,
   cfg.attrs = attrs;
   cfg.numAttrs = 2;
   return cudaLaunchKernelEx(&cfg, step_kernel, counts, row_max, block_max,
-                            lex_rank, token_bytes, token_len, merges, scalars, stats,
-                            out, V, L, step, min_frequency, replay_until);
+                            lex_rank, token_bytes, token_len, token_key, merges,
+                            scalars, stats, out, V, L, step, min_frequency,
+                            replay_until, key_cap);
 }
 
 cudaError_t launch_apply(int n_blocks, cudaStream_t st, int* words,
@@ -988,35 +1140,45 @@ extern "C" const char* yabpe_cuda_error_string(int code) {
 }
 
 // CTAs in the step kernel's cluster for this problem (16 or 8), or minus
-// the cudaError_t that says why no cluster fits.
-extern "C" int yabpe_hbm_cluster_ctas(int V, int L) {
-  int ctas = 0;
+// the cudaError_t that says why no cluster fits. Where `staged` is not
+// null it gets 1 where the merge steps stage their stripes' prefix keys in
+// shared memory, 0 where they read them from device memory.
+extern "C" int yabpe_hbm_cluster_ctas(int V, int L, int* staged) {
+  int ctas = 0, key_cap = 0;
   size_t smem = 0;
-  const cudaError_t err = pick_cluster(V, L, &ctas, &smem);
-  return err == cudaSuccess ? ctas : -static_cast<int>(err);
+  const cudaError_t err = pick_cluster(V, L, true, &ctas, &key_cap, &smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (staged != nullptr) *staged = key_cap > 0 ? 1 : 0;
+  return ctas;
 }
 
 // Runs merge steps [step_begin, step_end) on `stream`, without syncing;
-// the steps below `replay_until` replay their rows of `merges`. Returns the
-// first launch error (a cudaError_t), 0 when all launched.
+// the steps below `replay_until` replay their rows of `merges`. With
+// `stage_keys` 1 the steps stage their stripes' prefix keys in shared
+// memory where the cluster has room (pick_cluster); 0 makes them read the
+// keys from device memory, the path of a card without that room, which
+// the tests take on purpose. Returns the first launch error (a
+// cudaError_t), 0 when all launched.
 extern "C" int yabpe_hbm_merge_chunk(
     int* words, const int* freqs, int* counts, int* row_max, int* block_max,
-    int* token_bytes, int* token_len, int* lex_rank, int* merges,
-    int* scalars, int* stats, int N, int W, int V, int L, int step_begin,
-    int step_end, int min_frequency, int replay_until, void* stream) {
+    int* token_bytes, int* token_len, int* lex_rank, u64* token_key,
+    int* merges, int* scalars, int* stats, int N, int W, int V, int L,
+    int step_begin, int step_end, int min_frequency, int replay_until,
+    int stage_keys, void* stream) {
   if (W > kMaxWidth || W < 2 || V > kRowKeyMaxVocab || V < 1 || L < 4 ||
       L % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int ctas = 0;
+  int ctas = 0, key_cap = 0;
   size_t smem = 0;
-  cudaError_t err = pick_cluster(V, L, &ctas, &smem);
+  cudaError_t err = pick_cluster(V, L, stage_keys != 0, &ctas, &key_cap, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_blocks = (N + kApplyThreads - 1) / kApplyThreads;
   for (int step = step_begin; step < step_end; ++step) {
-    err = launch_step(ctas, smem, st, counts, row_max, block_max, lex_rank,
-                      token_bytes, token_len, merges, scalars, stats, nullptr,
-                      V, L, step, min_frequency, replay_until);
+    err = launch_step(ctas, key_cap, smem, st, counts, row_max, block_max,
+                      lex_rank, token_bytes, token_len, token_key, merges,
+                      scalars, stats, nullptr, V, L, step, min_frequency,
+                      replay_until);
     if (err == cudaSuccess && n_blocks > 0)
       err = launch_apply(n_blocks, st, words, freqs, counts, row_max,
                          block_max, scalars, N, W, V);
@@ -1035,12 +1197,12 @@ extern "C" int yabpe_hbm_select(const int* counts, int* row_max,
                                 void* stream) {
   if (V > kRowKeyMaxVocab || V < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int ctas = 0;
+  int ctas = 0, key_cap = 0;
   size_t smem = 0;
-  cudaError_t err = pick_cluster(V, 4, &ctas, &smem);
+  cudaError_t err = pick_cluster(V, 4, false, &ctas, &key_cap, &smem);
   if (err == cudaSuccess)
-    err = launch_step(ctas, smem, static_cast<cudaStream_t>(stream), counts,
+    err = launch_step(ctas, 0, smem, static_cast<cudaStream_t>(stream), counts,
                       row_max, block_max, lex_rank, nullptr, nullptr, nullptr,
-                      scalars, nullptr, out, V, 4, 0, min_frequency, 0);
+                      nullptr, scalars, nullptr, out, V, 4, 0, min_frequency, 0);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

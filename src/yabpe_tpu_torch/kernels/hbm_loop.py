@@ -9,7 +9,8 @@ one apply kernel) and their design note is at the top of that file.
 
 The parts that live here:
 
-- :class:`HbmState`, the state tensors (all int32, one device);
+- :class:`HbmState`, the state tensors (int32 but ``token_key``, one
+  device);
 - :func:`hbm_merge_chunk`, the wrapper: it runs one chunk of merge steps
   and updates the state **in place**. For CUDA tensors it launches the
   kernels (built on first use) and raises on any launch error; for CPU
@@ -21,8 +22,9 @@ The parts that live here:
   :func:`plain_merge_steps` (shared with the twin of
   ``kernels/fused_loop.py``), selects by an exact max over the whole
   table (:func:`exact_select`), applies merges with tensor ops and folds
-  full-word deltas with ``index_add_``; then it recomputes ``row_max``
-  and ``block_max`` exactly;
+  full-word deltas with ``index_add_``, and writes a new token's prefix
+  key beside its bytes; then it recomputes ``row_max`` and ``block_max``
+  exactly;
 - :func:`cluster_select_reference`, the kernel's select round by round
   in torch (striped candidates, several verified per round, each
   verified row read through its block bounds, the acceptance rule,
@@ -69,7 +71,8 @@ STAT_NS_BARRIER = 7  # the first round's first cluster barrier alone
 STAT_REPLAYED = 8  # replayed steps, which add to none of the slots above
 STAT_NS_REPLAY = 9  # the step kernel of the replayed steps, whole
 STAT_BLOCKS_READ = 10  # column blocks the select's verifies read in full
-N_STATS = 11
+STAT_TIE_ROWS = 11  # token rows the dedup compare read on a prefix-key tie
+N_STATS = 12
 
 #: Longest word (in symbols) the apply kernel of K2 (and K3) takes.
 MAX_WORD_WIDTH = 64
@@ -110,7 +113,7 @@ LAUNCHES: dict[str, int] = {"hbm_merge_chunk": 0, "hbm_select_step": 0}
 
 @dataclass
 class HbmState:
-    """Merge-loop state, int32 tensors on one device.
+    """Merge-loop state, int32 tensors but ``token_key`` on one device.
 
     Attributes:
         words: [N, W] symbol ids, -1 padded; updated in place.
@@ -124,13 +127,17 @@ class HbmState:
         token_bytes: [V, L] token byte strings, -1 padded.
         token_len: [V] token byte lengths.
         lex_rank: [V] dense lex rank among live tokens, -1 for free ids.
+        token_key: [key_rows(V)] int64, each token's prefix key
+            (``core/lexkey.py::prefix_keys``), 0 for free ids and the
+            padding rows past V.
         merges: [M, 3] (left, right, new id) per step, -1 where not taken.
         scalars: [8] next_id, stopped, num_done, then per-step temporaries
             and ``DIVERGED``.
-        stats: [11] the kernel's counters (verify rounds, rows verified,
+        stats: [12] the kernel's counters (verify rounds, rows verified,
             the step kernel's nanoseconds by phase, the replayed steps and
-            their nanoseconds, the blocks the verifies read: ``STAT_*``);
-            the twin leaves them as they are.
+            their nanoseconds, the blocks the verifies read, the token rows
+            the dedup compare read: ``STAT_*``); the twin leaves them as
+            they are.
     """
 
     words: torch.Tensor
@@ -141,6 +148,7 @@ class HbmState:
     token_bytes: torch.Tensor
     token_len: torch.Tensor
     lex_rank: torch.Tensor
+    token_key: torch.Tensor
     merges: torch.Tensor
     scalars: torch.Tensor
     stats: torch.Tensor
@@ -161,6 +169,13 @@ def block_count(vocab_cap: int) -> int:
     return -(-vocab_cap // BLOCK_COLS)
 
 
+def key_rows(vocab_cap: int) -> int:
+    """Rows of ``HbmState.token_key``: V rounded up to a multiple of 4, so
+    that the step kernel's copy of a stripe's keys, whole 16 bytes, stays
+    inside the tensor."""
+    return -(-vocab_cap // 4) * 4
+
+
 def exact_block_max(counts: torch.Tensor, block_cols: int = BLOCK_COLS) -> torch.Tensor:
     """[V, ceil(V / block_cols)] int32: the exact max count of each block of
     ``block_cols`` columns of each row of ``counts``."""
@@ -173,22 +188,24 @@ def exact_block_max(counts: torch.Tensor, block_cols: int = BLOCK_COLS) -> torch
 def check_state(state) -> None:
     """Raise ValueError unless a merge-loop state (this module's
     :class:`HbmState` or ``kernels.fused_loop.FusedState``) has the
-    kernels' layout: contiguous int32 tensors on one device, consistent
-    shapes, and a word width of at least 2, at most MAX_WORD_WIDTH for an
-    HbmState (K2's apply; K1, like the TPU kernel, takes any width)."""
+    kernels' layout: contiguous int32 tensors (int64 ``token_key``) on one
+    device, consistent shapes, and a word width of at least 2, at most
+    MAX_WORD_WIDTH for an HbmState (K2's apply; K1, like the TPU kernel,
+    takes any width)."""
     name = type(state).__name__
     n, w = state.words.shape
     v = state.counts.shape[0]
     shapes = {
         "freqs": (n,), "counts": (v, v), "row_max": (v,),
         "block_max": (v, block_count(v)),
-        "token_len": (v,), "lex_rank": (v,), "scalars": (N_SCALARS,),
-        "stats": (N_STATS,),
+        "token_len": (v,), "lex_rank": (v,), "token_key": (key_rows(v),),
+        "scalars": (N_SCALARS,), "stats": (N_STATS,),
     }
     for f in fields(state):
         t = getattr(state, f.name)
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name}.{f.name} must be contiguous int32")
+        kind = "int64" if f.name == "token_key" else "int32"
+        if t.dtype != getattr(torch, kind) or not t.is_contiguous():
+            raise ValueError(f"{name}.{f.name} must be contiguous {kind}")
         if t.device != state.words.device:
             raise ValueError(f"{name} tensors must share one device")
         if f.name in shapes and tuple(t.shape) != shapes[f.name]:
@@ -212,6 +229,7 @@ def hbm_merge_chunk(
     num_merges: int,
     min_frequency: int,
     replay_until: int = 0,
+    _stage_keys: bool = True,
 ) -> None:
     """Run merge steps [chunk_start, chunk_start + chunk_size), capped at
     ``num_merges``, updating ``state`` in place.
@@ -225,7 +243,10 @@ def hbm_merge_chunk(
 
     CUDA tensors go through the CUDA kernels, on PyTorch's current stream
     and without a sync; CPU tensors through the twin. Any other device, a
-    build failure or a launch failure raises.
+    build failure or a launch failure raises. The step kernel stages its
+    stripes' prefix keys in shared memory where the cluster has room for
+    them (:func:`stages_keys`); ``_stage_keys=False``, a hook for tests,
+    makes it read them from device memory, as on a card without the room.
     """
     state.check()
     device = state.words.device
@@ -246,7 +267,8 @@ def hbm_merge_chunk(
         return
     if state.merges.shape[0] < step_end:
         raise ValueError("HbmState.merges has fewer rows than steps")
-    _check_aligned(state.counts, state.row_max, state.lex_rank, state.token_bytes)
+    _check_aligned(state.counts, state.row_max, state.lex_rank, state.token_bytes,
+                   state.token_key)
     if state.token_bytes.shape[1] % 4:
         raise ValueError("HbmState.token_bytes width must be a multiple of 4")
     lib = _library()
@@ -257,7 +279,7 @@ def hbm_merge_chunk(
         rc = lib.yabpe_hbm_merge_chunk(
             *(t.data_ptr() for t in state.tensors()),
             n, w, v, byte_width, chunk_start, step_end, min_frequency,
-            replay_until, stream,
+            replay_until, int(_stage_keys), stream,
         )
     _raise_on_error(lib, rc, "hbm_merge_chunk")
     LAUNCHES["hbm_merge_chunk"] += 1
@@ -273,9 +295,10 @@ def raise_on_divergence(scalars: list[int]) -> None:
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
-    """The step kernel reads these with 16-byte loads."""
+    """The step kernel reads these with 16-byte loads or copies."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("counts, row_max, lex_rank and token_bytes must be 16-byte aligned")
+        raise ValueError(
+            "counts, row_max, lex_rank, token_bytes and token_key must be 16-byte aligned")
 
 
 def _raise_on_error(lib, rc: int, what: str) -> None:
@@ -288,11 +311,24 @@ def cluster_ctas(vocab_cap: int, byte_width: int, device=None) -> int:
     """CTAs of the step kernel's cluster on this card for [vocab_cap,
     byte_width] vocab tensors: 16 where a cluster of 16 fits, else 8.
     Raises RuntimeError where no cluster fits."""
+    return _cluster(vocab_cap, byte_width, device)[0]
+
+
+def stages_keys(vocab_cap: int, byte_width: int, device=None) -> bool:
+    """Whether the step kernel's cluster on this card has the shared memory
+    to stage each stripe's prefix keys for [vocab_cap, byte_width] vocab
+    tensors (else its dedup compare reads them from device memory).
+    Raises RuntimeError where no cluster fits."""
+    return _cluster(vocab_cap, byte_width, device)[1]
+
+
+def _cluster(vocab_cap: int, byte_width: int, device) -> tuple[int, bool]:
     lib = _library()
+    staged = ctypes.c_int(0)
     with torch.cuda.device(device):
-        ctas = lib.yabpe_hbm_cluster_ctas(vocab_cap, byte_width)
+        ctas = lib.yabpe_hbm_cluster_ctas(vocab_cap, byte_width, ctypes.byref(staged))
     _raise_on_error(lib, -ctas if ctas < 0 else 0, "cluster_ctas")
-    return ctas
+    return ctas, staged.value == 1
 
 
 def hbm_select_step(
@@ -368,14 +404,14 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("hbm_loop")
     lib.yabpe_hbm_merge_chunk.restype = ctypes.c_int
     lib.yabpe_hbm_merge_chunk.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     lib.yabpe_cuda_error_string.restype = ctypes.c_char_p
     lib.yabpe_cuda_error_string.argtypes = [ctypes.c_int]
     lib.yabpe_hbm_max_width.restype = ctypes.c_int
     lib.yabpe_hbm_max_width.argtypes = []
     lib.yabpe_hbm_cluster_ctas.restype = ctypes.c_int
-    lib.yabpe_hbm_cluster_ctas.argtypes = [ctypes.c_int] * 2
+    lib.yabpe_hbm_cluster_ctas.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.yabpe_hbm_select.restype = ctypes.c_int
     lib.yabpe_hbm_select.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.yabpe_hbm_max_vocab.restype = ctypes.c_int
@@ -426,13 +462,15 @@ def plain_merge_steps(
 ) -> None:
     """Merge steps [chunk_start, chunk_start + chunk_size), capped at
     ``num_merges``, in plain torch ops, on a merge-loop state (any object
-    with the fields of :class:`HbmState` but ``row_max``); updates it in
-    place. The step of both kernels' twins.
+    with the fields of :class:`HbmState` but ``row_max``, and but
+    ``token_key`` for K1's); updates it in place. The step of both
+    kernels' twins.
 
     Each step selects by an exact max over the whole table (ties to the
     greatest lex rank of the row, then of the column), stops when that
-    count is below ``max(min_frequency, 1)``, grows the vocab (dedup and
-    lex-rank insertion) and applies the merge to every word that holds
+    count is below ``max(min_frequency, 1)``, grows the vocab (dedup,
+    lex-rank insertion and, where the state keeps them, the new token's
+    prefix key) and applies the merge to every word that holds
     the pair. A step below ``replay_until`` takes the pair from its row of
     ``merges`` instead, as :func:`hbm_merge_chunk` says.
     """
@@ -441,6 +479,7 @@ def plain_merge_steps(
     if scal[STOPPED]:
         return
     next_id, num_done = scal[NEXT_ID], scal[NUM_DONE]
+    token_key = getattr(s, "token_key", None)  # K2's state has it, K1's not
     ids = torch.arange(v, device=s.counts.device)
     row_max = s.counts.amax(dim=1)
     for step in range(chunk_start, min(chunk_start + chunk_size, num_merges)):
@@ -473,6 +512,8 @@ def plain_merge_steps(
             s.lex_rank.copy_(bumped)
             s.token_bytes[c] = merged
             s.token_len[c] = merged_len
+            if token_key is not None:
+                token_key[c] = lexkey.prefix_keys(merged)
             next_id += 1
         s.merges[step] = torch.tensor([a, b, c], dtype=torch.int32)
         num_done += 1

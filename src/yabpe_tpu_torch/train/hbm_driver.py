@@ -46,11 +46,13 @@ from yabpe_tpu_torch.kernels.hbm_loop import (
     STAT_NS_VERIFY,
     STAT_NS_VOCAB,
     STAT_REPLAYED,
+    STAT_TIE_ROWS,
     STAT_VERIFIED,
     STOPPED,
     HbmState,
     block_count,
     hbm_merge_chunk,
+    key_rows,
     raise_on_divergence,
 )
 from yabpe_tpu_torch.train.state import max_possible_pair_count
@@ -92,14 +94,14 @@ def initial_corner_counts(
 
 def state_bytes(n_words: int, width: int, vocab_cap: int, token_width: int,
                 num_merges: int) -> int:
-    """Device bytes of the kernel state, the block bounds included (the
-    engines, which the trainer checks with it too, have none: a tenth of
-    a percent of the table)."""
+    """Device bytes of the kernel state, the block bounds and the prefix
+    keys included (the engines, which the trainer checks with it too, have
+    neither: a tenth of a percent of the table)."""
     v = vocab_cap
     return 4 * (
         n_words * (width + 1) + v * v + v * block_count(v) + v * (token_width + 3)
         + 3 * max(num_merges, 1) + N_SCALARS + N_STATS
-    )
+    ) + 8 * key_rows(v)
 
 
 def kernel_limits(table: WordTable, vocab_cap: int, *, fused: bool = False) -> str | None:
@@ -185,6 +187,8 @@ def state_from_numpy(
         base_tokens, v, byte_width(words.shape[1], base_tokens)
     )
     lex_rank = lexkey.initial_lex_ranks(base_tokens, v)
+    token_key = torch.zeros(key_rows(v), dtype=torch.int64)
+    token_key[:v] = lexkey.prefix_keys(torch.from_numpy(token_bytes))
 
     def put(a: np.ndarray) -> torch.Tensor:  # a copy: the state is mutated
         return torch.tensor(a, dtype=torch.int32, device=device)
@@ -209,6 +213,7 @@ def state_from_numpy(
         token_bytes=put(token_bytes),
         token_len=put(token_len),
         lex_rank=put(lex_rank),
+        token_key=token_key.to(device),
         merges=torch.full((max(num_merges, 1), 3), -1, dtype=torch.int32, device=device),
         scalars=put(scalars),
         stats=torch.zeros(N_STATS, dtype=torch.int32, device=device),
@@ -278,7 +283,7 @@ def run_chunks(
     While the tracer is on (utils/profiling.py), each chunk is a span and,
     for K2 on the card, the chunk's sync also reads ``state.stats`` into
     the counters ``k2.steps``, ``k2.rows_verified``, ``k2.blocks_read``,
-    ``k2.select_ns``, ``k2.bound_ns`` and ``k2.vocab_ns``
+    ``k2.tie_rows``, ``k2.select_ns``, ``k2.bound_ns`` and ``k2.vocab_ns``
     (:func:`k2_counters`); off, it
     reads nothing more. The twin leaves
     ``stats`` alone, so on the CPU there are no such counters."""
@@ -323,7 +328,8 @@ def k2_counters(before: tuple[list[int], list[int]],
     """K2's counters over a stretch of steps, from ``(scalars, stats)`` read
     before and after it: live steps (merges done less replayed steps), the
     rows the select verified, the column blocks those verifies read in
-    full, and nanoseconds of the step kernel's phases
+    full, the token rows the dedup compare read where a prefix key tied
+    the merged string's, and nanoseconds of the step kernel's phases
     whose work grows with the vocabulary: the select (bound passes and
     verifies), the bound passes alone, and the vocab phases (the dedup
     compare and lex-rank insertion, then the vocab update and the record).
@@ -338,6 +344,7 @@ def k2_counters(before: tuple[list[int], list[int]],
         "k2.steps": s1[NUM_DONE] - s0[NUM_DONE] - diff(STAT_REPLAYED),
         "k2.rows_verified": diff(STAT_VERIFIED),
         "k2.blocks_read": diff(STAT_BLOCKS_READ),
+        "k2.tie_rows": diff(STAT_TIE_ROWS),
         "k2.select_ns": diff(STAT_NS_BOUND) + diff(STAT_NS_VERIFY),
         "k2.bound_ns": diff(STAT_NS_BOUND),
         "k2.vocab_ns": diff(STAT_NS_COMPARE) + diff(STAT_NS_VOCAB),

@@ -37,6 +37,7 @@ SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 PERFBENCH = Path(__file__).resolve().parent.parent / "perfbench"
 SPECIALS = ["<|endoftext|>"]
 TENSORS = ("words", "counts", "merges", "token_bytes", "token_len", "lex_rank")
+K2_TENSORS = TENSORS + ("token_key",)
 
 
 def _need_cuda() -> None:
@@ -112,9 +113,10 @@ def select_state(name: str, seed: int):
 
 
 def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fused=False,
-                    layout=None):
+                    layout=None, stage_keys=True):
     """K2 (or K1 with ``fused``, its token bytes in ``layout``) against its
-    twin, chunk by chunk, from one state; returns the kernel's state."""
+    twin, chunk by chunk, from one state; returns the kernel's state. K2
+    with ``stage_keys=False`` reads its prefix keys from device memory."""
     base = list(Vocab.base(specials).tokens())
     num = vocab_cap - len(base)
     if fused:
@@ -128,9 +130,9 @@ def _kernel_vs_twin(table: WordTable, specials, vocab_cap, min_freq, chunk, fuse
     for start in range(0, num, chunk):
         kw = dict(chunk_start=start, chunk_size=chunk, num_merges=num, min_frequency=min_freq)
         twin_fn(twin, **kw)
-        kern_fn(kern, **kw, **(dict(_layout=layout) if fused else {}))
+        kern_fn(kern, **kw, **(dict(_layout=layout) if fused else dict(_stage_keys=stage_keys)))
         torch.cuda.synchronize()
-        for name in TENSORS:
+        for name in TENSORS if fused else K2_TENSORS:
             assert torch.equal(getattr(kern, name), getattr(twin, name)), (name, start)
         assert torch.equal(kern.scalars[:3], twin.scalars[:3]), start
         assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
@@ -177,7 +179,7 @@ def test_kernel_matches_twin_at_a_100k_wide_vocab():
     base = list(Vocab.base(SPECIALS).tokens())
     v, chunk = 100_001, 128
     num = 447
-    small = ("words", "merges", "token_bytes", "token_len", "lex_rank")
+    small = ("words", "merges", "token_bytes", "token_len", "lex_rank", "token_key")
 
     def snapshot(state):
         n = int(state.scalars[hbm_loop.NEXT_ID])
@@ -687,16 +689,81 @@ def _replay_pair(table: WordTable, vocab_cap: int, record: np.ndarray, replay_un
     return twin.clone(), twin
 
 
+def _shared_prefix_table() -> WordTable:
+    """Words of 8-10 bytes in two families, each sharing its first 7 bytes
+    (one of them 0xFF ... 0x00), so that the long tokens their merges make
+    tie on the prefix key."""
+    rng = np.random.default_rng(5)
+    counter = Counter()
+    for head in (b"abcdefg", b"\xffbcdef\x00"):
+        for x in b"hijklm":
+            counter[head + bytes([x])] += int(rng.integers(1, 9))
+            for y in b"nopq":
+                counter[head + bytes([x, y])] += int(rng.integers(1, 9))
+                counter[head + bytes([x, y, y])] += int(rng.integers(1, 5))
+    return WordTable.from_counter(counter)
+
+
+def _tie_rows(base: list[bytes], merges: list[list[int]]) -> int:
+    """Token rows that K2's dedup compare reads over the steps of ``merges``:
+    at each step, the live tokens longer than 7 bytes whose first 7 bytes
+    are the merged string's, where that string is longer than 7 bytes."""
+    toks, rows = list(base), 0
+    for a, b, c in merges:
+        merged = toks[a] + toks[b]
+        if len(merged) > 7:
+            rows += sum(len(t) > 7 and t[:7] == merged[:7] for t in toks)
+        if c == len(toks):
+            toks.append(merged)
+    return rows
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("replay_until", [45, 100])
-def test_kernel_replay_matches_twin(replay_until):
+@pytest.mark.parametrize("stage_keys", [True, False])
+def test_kernel_reads_token_rows_only_on_prefix_key_ties(stage_keys):
+    """K2 against its twin over two families of long words that share 7-byte
+    prefixes, its keys staged in shared memory or (the fallback of a card
+    without the room) read from device memory: the state equal after every
+    chunk, token_key included, and the token rows read on key ties equal
+    to the count recomputed from the twin's steps."""
+    _need_cuda()
+    kern = _kernel_vs_twin(_shared_prefix_table(), SPECIALS, 420, 1, 16, stage_keys=stage_keys)
+    steps = int(kern.scalars[hbm_loop.NUM_DONE])
+    base = list(Vocab.base(SPECIALS).tokens())
+    want = _tie_rows(base, kern.merges[:steps].tolist())
+    assert steps > 100 and want > 100
+    assert int(kern.stats[hbm_loop.STAT_TIE_ROWS]) == want
+
+
+@pytest.mark.cuda
+def test_step_cluster_keeps_its_ctas_and_stages_keys():
+    """The prefix keys' room costs the step kernel's cluster no CTA: on the
+    H100, 16 CTAs that stage their keys at V = 32,000, 100,001 and 131,072
+    with the widest token rows, where the cluster had 16 before."""
+    _need_cuda()
+    for v in (32_000, 100_001, 131_072):
+        ctas = hbm_loop.cluster_ctas(v, 64)
+        if "H100" in torch.cuda.get_device_name():
+            assert ctas == 16 and hbm_loop.stages_keys(v, 64), v
+        else:
+            assert ctas in (8, 16), v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corpus,replay_until", [("large", 45), ("large", 100),
+                                                 ("shared_prefix", 60)])
+def test_kernel_replay_matches_twin(corpus, replay_until):
     """K2's replay mode against the twin's, from one state, at replay
     points that are not chunk-aligned (chunks of 32): the state equal
     after every chunk, the merges equal to the uninterrupted run's, the
-    replayed steps counted apart from the live ones."""
+    replayed steps counted apart from the live ones. The shared-prefix
+    words make the replayed compare read token rows on key ties."""
     _need_cuda()
-    table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
-    v = 600
+    if corpus == "large":
+        table = WordTable.from_counter(count_pretokens([DATA / "large.txt"], SPECIALS))
+        v = 600
+    else:
+        table, v = _shared_prefix_table(), 420
     num = v - len(Vocab.base(SPECIALS))
     full = hbm_driver.run_hbm_merge_loop(
         table, Vocab.base(SPECIALS), vocab_cap=v, num_merges=num, min_frequency=1,
@@ -709,13 +776,19 @@ def test_kernel_replay_matches_twin(replay_until):
         hbm_loop.hbm_merge_chunk_reference(twin, **kw)
         hbm_loop.hbm_merge_chunk(kern, **kw)
         torch.cuda.synchronize()
-        for name in TENSORS:
+        for name in K2_TENSORS:
             assert torch.equal(getattr(kern, name), getattr(twin, name)), (name, start)
         assert torch.equal(kern.scalars[:3], twin.scalars[:3]), start
         assert bool((kern.row_max >= kern.counts.amax(dim=1)).all()), start
         assert bool((kern.block_max >= hbm_loop.exact_block_max(kern.counts)).all()), start
     assert np.array_equal(kern.merges[:num].cpu().numpy(), full)
     assert int(kern.stats[hbm_loop.STAT_REPLAYED]) == replay_until
+    if corpus == "shared_prefix":  # the replayed steps add no tie rows
+        steps = int(kern.scalars[hbm_loop.NUM_DONE])
+        base = list(Vocab.base(SPECIALS).tokens())
+        records = kern.merges[:steps].tolist()
+        live = _tie_rows(base, records) - _tie_rows(base, records[:replay_until])
+        assert int(kern.stats[hbm_loop.STAT_TIE_ROWS]) == live
     assert int(kern.scalars[hbm_loop.DIVERGED]) == 0
 
 
@@ -742,7 +815,7 @@ def test_kernel_replay_divergence_raises():
         hbm_loop.hbm_merge_chunk(kern, **kw)
         assert torch.equal(kern.scalars[:3], twin.scalars[:3])
         assert int(kern.scalars[hbm_loop.DIVERGED]) == int(twin.scalars[hbm_loop.DIVERGED]) == 11
-        for name in TENSORS:
+        for name in K2_TENSORS:
             assert torch.equal(getattr(kern, name), getattr(twin, name)), name
         with pytest.raises(AssertionError, match="divergence at replayed step 10"):
             hbm_driver.run_hbm_merge_loop(

@@ -210,6 +210,105 @@ def test_torch_lexkey_matches_jax():
         assert got_ins == int(want_ins)
 
 
+def _key_of(token: bytes) -> int:
+    """A token's prefix key, from its bytes: the first 7 bytes big-endian,
+    9 bits each (byte + 1, 0 past the end), then 1 where it is longer."""
+    key = 0
+    for i in range(7):
+        key = (key << 9) | (token[i] + 1 if i < len(token) else 0)
+    return (key << 1) | (len(token) > 7)
+
+
+def _keys_read(keys: torch.Tensor) -> list[int]:
+    """int64 prefix keys read as the unsigned 64-bit keys they hold."""
+    return [k % 2**64 for k in keys.tolist()]
+
+
+def _random_tokens(seed: int) -> list[bytes]:
+    """Distinct byte strings of 0-64 bytes over 0x00, 0x01, 0x61, 0xFE and
+    0xFF, each drawn with some of its prefixes and extensions, and long
+    ones that share their first 7 bytes."""
+    rng = np.random.default_rng(seed)
+    alphabet = [0x00, 0x01, 0x61, 0xFE, 0xFF]
+    out = {b""}
+    for _ in range(300):
+        tok = bytes(rng.choice(alphabet, int(rng.integers(0, 65))).tolist())
+        cut = int(rng.integers(0, len(tok) + 1))
+        out |= {tok, tok[:cut], tok[:7], tok[:8], tok + b"\x00", tok + b"\xff"}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_prefix_keys_order_as_byte_strings(seed):
+    """Where two tokens' prefix keys differ, unsigned they order as the byte
+    strings do (a prefix first, 0x00 and 0xFF bytes included); equal keys
+    only where the strings are equal or both are longer than 7 bytes with
+    the same first 7. The helper's keys equal the keys built from bytes."""
+    toks = _random_tokens(seed)
+    mat, _ = lexkey.initial_token_matrix(toks, len(toks), 72)
+    keys = _keys_read(lexkey.prefix_keys(torch.from_numpy(mat)))
+    assert keys == [_key_of(t) for t in toks]
+    rng = np.random.default_rng(seed + 10)
+    pairs = [(i, i + 1) for i in range(len(toks) - 1)]
+    pairs += [tuple(sorted(p)) for p in rng.integers(0, len(toks), (4000, 2)).tolist()]
+    ties = 0
+    for i, j in pairs:
+        s, t = toks[i], toks[j]
+        if keys[i] != keys[j]:
+            assert (keys[i] < keys[j]) == (s < t), (s, t)
+        elif s != t:
+            assert len(s) > 7 and len(t) > 7 and s[:7] == t[:7], (s, t)
+            ties += 1
+    assert ties > 0
+    assert keys == sorted(keys)  # toks are sorted
+    assert _keys_read(lexkey.prefix_keys(torch.full((3, 4), -1))) == [0, 0, 0]
+
+
+def test_state_from_numpy_builds_prefix_keys(small_corpus):
+    """token_key holds each base token's prefix key and 0 on the free ids
+    and the padding rows, to a multiple of 4 rows."""
+    _, jt = small_corpus
+    base = list(Vocab.base(SPECIALS).tokens())
+    v = 301
+    st = hbm_driver.state_from_numpy(jt.words, jt.freqs, base, v, "cpu")
+    assert st.token_key.dtype == torch.int64 and tuple(st.token_key.shape) == (304,)
+    assert hbm_loop.key_rows(v) == 304 and hbm_loop.key_rows(300) == 300
+    assert _keys_read(st.token_key) == [_key_of(t) for t in base] + [0] * (304 - len(base))
+    st.check()
+    bad = st.clone()
+    bad.token_key = bad.token_key.int()
+    with pytest.raises(ValueError, match="token_key must be contiguous int64"):
+        bad.check()
+
+
+@pytest.mark.parametrize("replay_until", [0, 40])
+def test_twin_keeps_prefix_keys_beside_the_bytes(small_corpus, replay_until):
+    """After a twin run, live or replaying a record, token_key holds the
+    key of every live token's bytes (each written when its token was), and
+    the merges are the uninterrupted run's."""
+    _, jt = small_corpus
+    base = list(Vocab.base(SPECIALS).tokens())
+    v = 400
+    num = v - len(base)
+    full = hbm_driver.run_hbm_merge_loop(
+        _port_table(jt), Vocab.base(SPECIALS), vocab_cap=v, num_merges=num,
+        min_frequency=1, chunk_size=64, device="cpu",
+    )
+    st = hbm_driver.state_from_numpy(jt.words, jt.freqs, base, v, "cpu")
+    st.merges[:replay_until] = torch.from_numpy(full[:replay_until])
+    for start in range(0, num, 50):
+        hbm_loop.hbm_merge_chunk_reference(
+            st, chunk_start=start, chunk_size=50, num_merges=num, min_frequency=1,
+            replay_until=replay_until,
+        )
+    n = int(st.scalars[hbm_loop.NEXT_ID])
+    assert n > 300 and np.array_equal(st.merges.numpy(), full)
+    toks = [bytes(r[r >= 0].tolist()) for r in st.token_bytes[:n].numpy()]
+    assert _keys_read(st.token_key[:n]) == [_key_of(t) for t in toks]
+    assert not bool(st.token_key[n:].any())
+    assert any(len(t) > 7 for t in toks)
+
+
 def test_admission_limits():
     """The driver raises past the kernels' limits, for the reason that
     ``kernel_limits`` gives the trainer's routing."""

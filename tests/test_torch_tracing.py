@@ -22,6 +22,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from yabpe_tpu_torch import BBPETrainer, BBPETrainerConfig
+from yabpe_tpu_torch.core.vocab import Vocab
 from yabpe_tpu_torch.kernels import hbm_loop
 from yabpe_tpu_torch.pretok import ingest
 from yabpe_tpu_torch.train import hbm_driver
@@ -200,11 +201,13 @@ def test_k2_counters_take_stat_differences_modulo_2_32():
     stats0[hbm_loop.STAT_NS_VOCAB], stats1[hbm_loop.STAT_NS_VOCAB] = 7, 17
     stats0[hbm_loop.STAT_NS_STEP], stats1[hbm_loop.STAT_NS_STEP] = 0, 10**6  # read by none
     stats0[hbm_loop.STAT_BLOCKS_READ], stats1[hbm_loop.STAT_BLOCKS_READ] = 2**31 - 3, -(2**31) + 600
+    stats0[hbm_loop.STAT_TIE_ROWS], stats1[hbm_loop.STAT_TIE_ROWS] = -2, 9
     scalars0, scalars1 = [0] * hbm_loop.N_SCALARS, [0] * hbm_loop.N_SCALARS
     scalars0[hbm_loop.NUM_DONE], scalars1[hbm_loop.NUM_DONE] = 100, 150
     got = hbm_driver.k2_counters((scalars0, stats0), (scalars1, stats1))
     assert got == {"k2.steps": 47, "k2.rows_verified": 400, "k2.blocks_read": 603,
-                   "k2.select_ns": 150 + 20, "k2.bound_ns": 150, "k2.vocab_ns": 7 + 10}
+                   "k2.tie_rows": 11, "k2.select_ns": 150 + 20, "k2.bound_ns": 150,
+                   "k2.vocab_ns": 7 + 10}
 
 
 @pytest.mark.cuda
@@ -223,3 +226,14 @@ def test_k2_counters_on_the_card():
     assert got["k2.rows_verified"] > 0 and got["k2.select_ns"] > 0
     assert 0 < got["k2.bound_ns"] < got["k2.select_ns"] and got["k2.vocab_ns"] > 0
     assert got["k2.blocks_read"] >= got["k2.rows_verified"]
+    # the dedup compare reads a token row only on a prefix-key tie: at each
+    # step, a live token longer than 7 bytes whose first 7 bytes are those
+    # of a merged string longer than 7 bytes
+    toks, ties = list(Vocab.base(SPECIALS).tokens()), 0
+    for a, b in model.merges:
+        merged = a + b
+        if len(merged) > 7:
+            ties += sum(len(t) > 7 and t[:7] == merged[:7] for t in toks)
+        if merged not in toks:
+            toks.append(merged)
+    assert got["k2.tie_rows"] == ties

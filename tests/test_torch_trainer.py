@@ -341,7 +341,7 @@ def test_k2_state_holds_block_bounds_of_its_corner():
     """state_from_numpy's block_max: each row's corner max in block 0 (every
     base id lies below BLOCK_COLS), 0 elsewhere, so row_max is the largest
     of its row's block bounds; and state_bytes is the state's own bytes,
-    the block bounds included."""
+    the block bounds and the prefix keys included."""
     from collections import Counter
 
     from yabpe_tpu_torch.core.vocab import Vocab
@@ -360,7 +360,7 @@ def test_k2_state_holds_block_bounds_of_its_corner():
     n, w = table.words.shape
     need = hbm_driver.state_bytes(n, w, v, st.token_bytes.shape[1], num)
     assert need == sum(t.numel() * t.element_size() for t in st.tensors())
-    without = need - 4 * v * hbm_loop.block_count(v)
+    without = need - 4 * v * hbm_loop.block_count(v) - 8 * hbm_loop.key_rows(v)
     assert without == 4 * (n * (w + 1) + v * v + v * (st.token_bytes.shape[1] + 3)
                            + 3 * num + hbm_loop.N_SCALARS + hbm_loop.N_STATS)
 
@@ -371,7 +371,7 @@ def test_k2_counters_count_blocks_read_modulo_2_32():
     from yabpe_tpu_torch.kernels import hbm_loop
     from yabpe_tpu_torch.train import hbm_driver
 
-    assert hbm_loop.N_STATS == 11 and hbm_loop.STAT_BLOCKS_READ == 10
+    assert hbm_loop.N_STATS == 12 and hbm_loop.STAT_BLOCKS_READ == 10
     scalars = [0] * hbm_loop.N_SCALARS
     for before, after, want in [(0, 25, 25), (2**31 - 10, -(2**31) + 5, 15), (-1, 3, 4)]:
         s0, s1 = [0] * hbm_loop.N_STATS, [0] * hbm_loop.N_STATS
